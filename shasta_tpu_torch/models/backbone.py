@@ -1,0 +1,161 @@
+"""Sparse 3D ResNet trunk (SpMiddleResNetFHD) at B=1: the port of
+shasta_tpu/models/backbone.py.
+
+Module and parameter names follow the det3d state_dict that
+shasta_tpu/train/convert.py reads (scn.py:99-161): conv_input.{0,1},
+conv1.{0,1}, conv{2,3,4}.{0,1,3,4} and extra_conv.{0,1}; sparse weights
+keep the spconv-1.x layout (kz, ky, kx, in, out).
+
+The C_in <= 32 convs (conv_input, res0, down1, res1, down2: 11 per frame)
+run `rulebook_conv` on host-built rulebooks (shasta_tpu_torch/plans.py);
+the C_in >= 64 convs (res2, down3, res3, extra: 10 per frame) run
+`keyed_conv` on query keys built on the device, the split of
+backbone.py:210-287.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops import sparse as sp
+
+
+class SparseBN(nn.BatchNorm1d):
+    """BatchNorm1d (eps 1e-3) over the valid rows, running statistics
+    (inference only)."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-3, momentum=0.01)
+
+    def forward(self, feats, valid):
+        return sp.masked_batch_norm(feats, valid, self.weight, self.bias,
+                                    self.running_mean, self.running_var,
+                                    self.eps)
+
+
+class SubMConv(nn.Module):
+    """Sparse conv weight in spconv-1.x layout (kz, ky, kx, in, out), with
+    an optional bias. Serves both the submanifold and the strided convs:
+    the index decides where outputs sit."""
+
+    def __init__(self, c_in: int, c_out: int, kernel=(3, 3, 3), bias: bool = True):
+        super().__init__()
+        fan_in = c_in * kernel[0] * kernel[1] * kernel[2]
+        self.weight = nn.Parameter(torch.randn(*kernel, c_in, c_out) / fan_in**0.5)
+        self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
+
+    def forward(self, feats, index, valid, compute_dtype=None):
+        K = self.weight.shape[0] * self.weight.shape[1] * self.weight.shape[2]
+        w = self.weight.reshape(K, *self.weight.shape[3:])
+        out = sp.sparse_conv(feats, index, w, compute_dtype)
+        if self.bias is not None:
+            out = out + self.bias
+        return torch.where(valid[:, None], out, 0.0)
+
+
+class SparseBasicBlock(nn.Module):
+    """Residual block (scn.py:52-95): conv-bn-relu-conv-bn + identity, relu."""
+
+    def __init__(self, planes: int):
+        super().__init__()
+        self.conv1 = SubMConv(planes, planes)
+        self.bn1 = SparseBN(planes)
+        self.conv2 = SubMConv(planes, planes)
+        self.bn2 = SparseBN(planes)
+
+    def forward(self, st: sp.SparseTensor, index, compute_dtype=None):
+        identity = st.feats
+        f = self.conv1(st.feats, index, st.valid, compute_dtype)
+        f = torch.relu(self.bn1(f, st.valid))
+        f = self.conv2(f, index, st.valid, compute_dtype)
+        f = torch.relu(self.bn2(f, st.valid) + identity)
+        return st._replace(feats=torch.where(st.valid[:, None], f, 0.0))
+
+
+class StridedConvBNReLU(nn.Sequential):
+    """det3d's stage Sequential: strided sparse conv (no bias), BN, ReLU,
+    then the stage's residual blocks at indices 3 and 4."""
+
+    def __init__(self, c_in, c_out, kernel, stride, padding, blocks: int = 2):
+        super().__init__(SubMConv(c_in, c_out, kernel, bias=False),
+                         SparseBN(c_out), nn.ReLU(),
+                         *[SparseBasicBlock(c_out) for _ in range(blocks)])
+        self.kernel, self.stride, self.padding = kernel, stride, padding
+
+    def forward(self, st: sp.SparseTensor, out_keys, index_of, compute_dtype=None):
+        """out_keys: the host-built output set; index_of(out_coords,
+        out_valid) gives the conv's index. Returns the strided output
+        only; the backbone drives the blocks (they need the stage index)."""
+        coords, valid, shape = sp.decode_strided_keys(
+            out_keys, st.shape, self.kernel, self.stride, self.padding,
+            st.batch_size)
+        f = self[0](st.feats, index_of(coords, valid), valid, compute_dtype)
+        f = torch.relu(self[1](f, valid))
+        return sp.SparseTensor(f, coords, valid, shape, st.batch_size)
+
+    def blocks(self):
+        return list(self)[3:]
+
+
+def _keyed_subm(st: sp.SparseTensor) -> sp.KeyedIndex:
+    skeys, perm = sp.key_table(st)
+    return sp.KeyedIndex(skeys, perm, sp.subm_queries(st))
+
+
+def _keyed_strided(st: sp.SparseTensor, stage: StridedConvBNReLU):
+    """index_of for a strided conv whose input rows are found by key."""
+    skeys, perm = sp.key_table(st)
+
+    def index_of(coords, valid):
+        q = sp.strided_queries(coords, valid, st.shape, stage.kernel,
+                               stage.stride, stage.padding)
+        return sp.KeyedIndex(skeys, perm, q)
+    return index_of
+
+
+def _blocks(stage: StridedConvBNReLU, x: sp.SparseTensor, index, dt):
+    for blk in stage.blocks():
+        x = blk(x, index, dt)
+    return x
+
+
+class SparseBackbone(nn.Module):
+    """Returns the dense BEV map NCHW (B, C*D, H, W), channel c*D + d."""
+
+    def __init__(self, num_input_features: int = 5, dtype=None):
+        super().__init__()
+        self.dtype = dtype  # torch.bfloat16: conv inputs in bf16, f32 sums
+        self.conv_input = nn.Sequential(
+            SubMConv(num_input_features, 16, bias=False), SparseBN(16), nn.ReLU())
+        self.conv1 = nn.Sequential(SparseBasicBlock(16), SparseBasicBlock(16))
+        self.conv2 = StridedConvBNReLU(16, 32, (3, 3, 3), (2, 2, 2), (1, 1, 1))
+        self.conv3 = StridedConvBNReLU(32, 64, (3, 3, 3), (2, 2, 2), (1, 1, 1))
+        # z unpadded: padding (0, 1, 1), scn.py:146
+        self.conv4 = StridedConvBNReLU(64, 128, (3, 3, 3), (2, 2, 2), (0, 1, 1))
+        # (3,1,1) stride (2,1,1), no blocks (scn.py:155-161)
+        self.extra_conv = StridedConvBNReLU(128, 128, (3, 1, 1), (2, 1, 1),
+                                            (0, 0, 0), blocks=0)
+
+    def forward(self, st: sp.SparseTensor, plans: dict) -> torch.Tensor:
+        dt = self.dtype
+        # stage 0: host rulebook shared by conv_input and res0
+        idx0 = sp.Rulebook(plans["s0_rb"])
+        f = self.conv_input[0](st.feats, idx0, st.valid, dt)
+        x = st._replace(feats=torch.relu(self.conv_input[1](f, st.valid)))
+        for blk in self.conv1:
+            x = blk(x, idx0, dt)
+
+        # stages 1-2: output sets and rulebooks from the host
+        x = self.conv2(x, plans["d1_keys"], lambda c, v: sp.Rulebook(plans["d1_rb"]), dt)
+        x = _blocks(self.conv2, x, sp.Rulebook(plans["d1s_rb"]), dt)
+        x = self.conv3(x, plans["d2_keys"], lambda c, v: sp.Rulebook(plans["d2_rb"]), dt)
+        # stages 2-3 and extra: neighbours found by key inside keyed_conv
+        x = _blocks(self.conv3, x, _keyed_subm(x), dt)
+        x = self.conv4(x, plans["d3_keys"], _keyed_strided(x, self.conv4), dt)
+        x = _blocks(self.conv4, x, _keyed_subm(x), dt)
+        x = self.extra_conv(x, plans["ex_keys"], _keyed_strided(x, self.extra_conv), dt)
+
+        dense = sp.to_dense(x)  # (B, D, H, W, C)
+        B, D, H, W, C = dense.shape
+        # torch views (N, C, D, H, W) as (N, C*D, H, W): channel c*D + d
+        return dense.permute(0, 4, 1, 2, 3).reshape(B, C * D, H, W)

@@ -1,0 +1,99 @@
+"""ShaSTA model for single-frame serving: the port of
+shasta_tpu/models/shasta.py (ShastaConfig, bev_single, frame_features,
+affinity_step).
+
+Inputs are fixed-shape: detections padded to max_obj rows of 11 features
+[x, y, z, w, l, h, yaw, vx, vy, dt, score], voxels padded to a static
+capacity with a validity mask. Inference only: the module is built in
+eval mode and never leaves it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch.profiler import record_function
+
+from ..core.bilinear import sample_bev_features
+from ..core.boxes import box_points_5
+from ..device import resolve_device
+from ..ops import sparse as sp
+from .affinity import AffinityNet
+from .backbone import SparseBackbone
+from .rpn import RPN, SharedConv
+from .vfe import voxel_mean_vfe
+
+
+@dataclasses.dataclass(frozen=True)
+class ShastaConfig:
+    """Static model hyper-shape (configs/nusc/car.py:26-70)."""
+
+    max_obj: int = 90
+    num_feats: int = 3
+    num_point: int = 5
+    share_conv_channel: int = 64
+    num_input_features: int = 5
+    pc_start: tuple = (-54.0, -54.0)
+    voxel_size: tuple = (0.075, 0.075)
+    out_stride: int = 8
+    # sparse grid (Z, Y, X) incl. the +1 z pad row (scn.py:181)
+    grid_shape: tuple = (41, 1440, 1440)
+    # voxel capacity caps per strided stage
+    cap_conv2: int = 60000
+    cap_conv3: int = 30000
+    cap_conv4: int = 15000
+    cap_extra: int = 15000
+    dtype: torch.dtype | None = None  # torch.bfloat16 trunk, None = f32
+
+
+class ShastaModel(AffinityNet):
+    """The BEV trunk plus the affinity head. As in det3d's Shasta, the
+    head's modules sit at the top level (aug_shape.*, fuse_shape.*, aff.*,
+    ...) beside backbone.*, neck.* and shared_conv.*, so a reference
+    state_dict loads as is; calling the model runs the affinity head."""
+
+    def __init__(self, cfg: ShastaConfig = ShastaConfig(), device=None):
+        super().__init__(cfg.max_obj, cfg.num_feats, cfg.num_point,
+                         cfg.share_conv_channel)
+        self.cfg = cfg
+        self.backbone = SparseBackbone(cfg.num_input_features, dtype=cfg.dtype)
+        self.neck = RPN(dtype=cfg.dtype)
+        self.shared_conv = SharedConv(512, cfg.share_conv_channel, dtype=cfg.dtype)
+        self.device = resolve_device(device)
+        self.to(self.device).eval()
+        self.requires_grad_(False)
+
+    def bev_single(self, frame: dict) -> torch.Tensor:
+        """Shared-conv BEV map (1, H, W, 64), channels last, for ONE frame.
+        frame: voxels (1, V, P, 5), num_points (1, V), coordinates
+        (1, V, 3) [z, y, x], voxels_valid (1, V) and the plan_* arrays of
+        shasta_tpu_torch/plans.py, all tensors on the model's device."""
+        B, V = frame["voxels"].shape[:2]
+        assert B == 1, "the serving trunk runs one frame (B=1)"
+        c = self.cfg
+        feats = voxel_mean_vfe(frame["voxels"].reshape(V, *frame["voxels"].shape[2:]),
+                               frame["num_points"].reshape(V), c.num_input_features)
+        coords = torch.cat([torch.zeros((V, 1), dtype=torch.int32, device=feats.device),
+                            frame["coordinates"].reshape(V, 3).to(torch.int32)], dim=1)
+        st = sp.SparseTensor(feats, coords, frame["voxels_valid"].reshape(V),
+                             tuple(c.grid_shape), 1)
+        plans = {k[5:]: v for k, v in frame.items() if k.startswith("plan_")}
+        with record_function("step.sparse_trunk"):
+            bev = self.backbone(st, plans)
+        with record_function("step.neck"):
+            bev = self.shared_conv(self.neck(bev))
+        return bev.permute(0, 2, 3, 1)
+
+    def frame_features(self, frame: dict) -> torch.Tensor:
+        """Trunk + BEV descriptor sampling for ONE frame -> (1, N, 320) f32."""
+        c = self.cfg
+        bev = self.bev_single(frame)
+        pts = box_points_5(frame["det_boxes"][:, :, :7])
+        return sample_bev_features(bev, pts, c.pc_start, c.voxel_size, c.out_stride)
+
+    def affinity_step(self, prev_boxes11, curr_boxes11, prev_feat, curr_feat):
+        """Affinity matrices from boxes + (possibly carried) descriptors."""
+        return self(
+            prev_boxes11[:, :, :7], curr_boxes11[:, :, :7],
+            curr_boxes11[:, :, 7:9], curr_boxes11[:, :, 9:10],
+            prev_feat.float(), curr_feat.float())

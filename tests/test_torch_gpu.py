@@ -1,0 +1,40 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need a CUDA card and skip elsewhere; the file imports no JAX,
+so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+import pytest
+import torch
+
+from shasta_tpu_torch import resolve_device
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_versions_on_the_card():
+    """Both CUDA kernels against their plain versions on the card, f32
+    (TF32 off) at 1e-4 and bf16 at 2e-2 (python3 chip_smoke.py runs the
+    same comparison at the main path's shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from shasta_tpu_torch.ops.kernels.block_conv import rulebook_conv, rulebook_conv_plain
+    from shasta_tpu_torch.ops.kernels.window_conv import keyed_conv, keyed_conv_plain
+
+    dev = resolve_device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    V, M = 3000, 2000
+    for cin, co, K in ((5, 16, 27), (16, 32, 27), (64, 128, 27), (128, 128, 3)):
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            f = torch.randn(V, cin, generator=g).to(dev, dt)
+            w = (torch.randn(K, cin, co, generator=g) * 0.1).to(dev, dt)
+            nbr = torch.randint(-1, V, (M, K), generator=g, dtype=torch.int32).to(dev)
+            torch.testing.assert_close(rulebook_conv(f, nbr, w),
+                                       rulebook_conv_plain(f, nbr, w), atol=tol, rtol=tol)
+            keys = torch.sort(torch.randint(0, 4 * V, (V,), generator=g,
+                                            dtype=torch.int32))[0].to(dev)
+            perm = torch.randperm(V, generator=g).to(torch.int32).to(dev)
+            q = torch.randint(-2, 4 * V, (M, K), generator=g, dtype=torch.int32).to(dev)
+            torch.testing.assert_close(keyed_conv(keys, perm, q, f, w),
+                                       keyed_conv_plain(keys, perm, q, f, w),
+                                       atol=tol, rtol=tol)

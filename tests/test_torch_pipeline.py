@@ -1,0 +1,76 @@
+"""The port's serving step against the JAX ScenePipeline (CPU, f32), plus
+the port's import and device rules.
+
+The JAX side runs its XLA path (use_pallas_gather=False); the port builds
+its host plans and runs its kernels' plain versions. Ids, used, keep and
+FN flags must match exactly; refined scores to 1e-4.
+"""
+import subprocess
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from shasta_tpu.infer import ScenePipeline as JPipeline
+from shasta_tpu.infer import default_tracker_params as jparams
+from shasta_tpu.models import ShastaConfig as JConfig, ShastaModel as JModel
+
+from shasta_tpu_torch import resolve_device
+from shasta_tpu_torch.convert import load_jax_variables, random_jax_variables
+from shasta_tpu_torch.data.synthetic import make_batch
+from shasta_tpu_torch.infer import ScenePipeline
+from shasta_tpu_torch.models import ShastaConfig, ShastaModel
+
+SMALL = dict(max_obj=10, grid_shape=(41, 80, 80), pc_start=(-3.0, -3.0),
+             cap_conv2=2000, cap_conv3=1000, cap_conv4=500, cap_extra=500)
+
+
+def test_step_frame_matches_jax_pipeline():
+    model = ShastaModel(ShastaConfig(**SMALL), device="cpu")
+    variables = random_jax_variables(model, seed=1)
+    load_jax_variables(model, variables)
+    pipe = ScenePipeline(model, cls_id=2)
+    jpipe = JPipeline(model=JModel(JConfig(**SMALL)),
+                      variables=jax.tree.map(jnp.asarray, variables),
+                      cls_id=2, params=jparams(max_age=4))
+    # one scene: frames share most voxels and carry their dets forward
+    base = make_batch(model.cfg, num_voxels_cap=2500, n_dets=7, seed=0)
+    rng = np.random.default_rng(0)
+    boxes = base["det_boxes"].copy()
+    boxes[0, :7, :2] = rng.uniform(-2.5, 2.5, (7, 2))
+    for t in range(3):
+        frame = {k: base[k] for k in ("voxels", "num_points", "coordinates",
+                                      "voxels_valid")}
+        frame["voxels"] = frame["voxels"] + np.float32(0.05 * t)
+        boxes[0, :7, :2] += boxes[0, :7, 7:9] * 0.5 + rng.normal(0, 0.05, (7, 2))
+        frame["det_boxes"] = boxes.copy()
+        n = 7 - (t == 2)
+        got = pipe.step_frame(frame, n, 0.5)
+        want = jpipe.step_frame(frame, n, 0.5)
+        np.testing.assert_array_equal(got.tid, want.tid)
+        np.testing.assert_array_equal(got.used, want.used)
+        np.testing.assert_array_equal(got.keep, want.keep)
+        np.testing.assert_array_equal(got.fn, want.fn)
+        np.testing.assert_allclose(got.ref, want.ref, atol=1e-4)
+        assert got.tid.min() >= 0 and got.tid.max() >= 1
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = ("import sys, shasta_tpu_torch, shasta_tpu_torch.infer, "
+            "shasta_tpu_torch.convert, shasta_tpu_torch.ops.kernels.build\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'shasta_tpu')]\n"
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        ShastaModel(ShastaConfig(**SMALL))
+    assert resolve_device("cpu").type == "cpu"

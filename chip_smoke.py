@@ -5,21 +5,37 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from shasta_tpu_torch/csrc (nvcc, in parallel);
-  3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (bench-scale frame: 120k voxels, stage caps
-     50k/25k/12k/12k), f32 with TF32 off at atol 1e-4 and bf16 at atol/rtol
-     2e-2, and time both;
+  2. build all four CUDA kernels from shasta_tpu_torch/csrc (one nvcc per
+     source, in parallel);
+  3. hold rulebook_conv and keyed_conv against their plain PyTorch
+     versions on the card at the B=1 step's shapes (bench-scale frame:
+     120k voxels, stage caps 50k/25k/12k/12k), f32 with TF32 off at atol
+     1e-4 and bf16 at atol/rtol 2e-2, and time both;
+  3b. the same for sorted_lookup (all three modes, integer equality) and
+     gather_conv at the 4-lane batched step's shapes: the index tables are
+     the ones the port builds for the 4-lane frame (480k voxels, caps
+     200k/100k/48k/48k); torch.searchsorted is timed beside sorted_lookup;
   4. drive ScenePipeline.step_frame at the full car width (V=120k,
      max_obj 90, 60 real dets, cls_id 2, max_age 4, bf16 trunk, random
      weights from a numpy seed loaded through load_jax_variables): warm-up,
-     then three timed runs of 20 frames; check the softmax sums, the ids and that every
-     frame launched rulebook_conv 11 times and keyed_conv 10 times;
+     then three timed runs of 20 frames; check the softmax sums, the ids
+     and that every frame launched rulebook_conv 11 times and keyed_conv
+     10 times;
   5. run a small configuration on cuda and on cpu (plain versions): equal
-     ids, used, keep and FN flags, refined scores within 1e-4.
-The line before the last is {"kernels": [...]} (launches from phase 4,
-times from phase 3); the last is {"ok": true, "device": {...}}.
-Imports nothing of JAX or of the JAX package.
+     ids, used, keep and FN flags, refined scores within 1e-4;
+  6. drive BatchedScenePipeline.step_frames at 4 lanes and the full car
+     width (bench.py --lanes 4: seeds 0-3, 120k voxels and 60 real dets per
+     lane): warm-up, then three timed runs of 10 steps, frames/s = lanes x
+     steps / s; check the softmax sums, that each used row's id lies in
+     [lane*1e6 + 1, (lane+1)*1e6) and that every step launched
+     sorted_lookup 12 times, gather_conv 21 times and neither B=1 kernel;
+  7. the small configuration at 2 lanes, f32: the batched step on cuda
+     equals it on cpu (ids, used, keep, FN exact; ref at 1e-4), and each
+     cuda lane equals a cuda ScenePipeline over that lane's frames (the
+     new route against the B=1 route).
+The line before the last is {"kernels": [...]} (launches from phases 4
+and 6, times from phases 3 and 3b); the last is {"ok": true, "device":
+{...}}. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -36,6 +52,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; f32 off the tensor
 TIMED_FRAMES = 20
 TIMED_RUNS = 3
 WARMUP_FRAMES = 3
+LANES = 4
+TIMED_STEPS = 10
+INT_OPS_PER_S = 67e12  # CUDA-core rate (the f32 row of the table) for integer compares
 SMALL = dict(max_obj=10, grid_shape=(41, 80, 80), pc_start=(-3.0, -3.0),
              cap_conv2=2000, cap_conv3=1000, cap_conv4=500, cap_extra=500)
 
@@ -164,6 +183,123 @@ def phase_kernels(cfg, frame, plans, dev):
     return per_kernel
 
 
+def batched_calls(model, frame):
+    """Run the 4-lane trunk once and return the arguments of its 12
+    sorted_lookup and 21 gather_conv calls, in order, as the port built
+    them (ops/sparse.py calls both by its module-level names)."""
+    import torch
+
+    from shasta_tpu_torch.ops import sparse as sp
+
+    calls = {"sorted_lookup": [], "gather_conv": []}
+    real = {name: getattr(sp, name) for name in calls}
+
+    def recorder(name):
+        def call(*args):
+            calls[name].append(args)
+            return real[name](*args)
+        return call
+
+    try:
+        for name in calls:
+            setattr(sp, name, recorder(name))
+        with torch.no_grad():
+            model.bev_single(frame)
+    finally:
+        for name, fn in real.items():
+            setattr(sp, name, fn)
+    return calls["sorted_lookup"], calls["gather_conv"]
+
+
+def phase_batched_kernels(model, frame):
+    """Phase 3b: sorted_lookup and gather_conv against their plain versions
+    at the 4-lane step's shapes, and their times (per step: the sum over
+    the step's calls)."""
+    import torch
+
+    from shasta_tpu_torch.ops.kernels import gather_conv as gc
+    from shasta_tpu_torch.ops.kernels import lookup as lk
+
+    lookups, convs = batched_calls(model, frame)
+    check(len(lookups) == 12 and len(convs) == 21,
+          f"the 4-lane trunk made {len(lookups)} lookups and {len(convs)} convs")
+    recs = {"sorted_lookup": dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
+                                  ops=0.0, err=0.0),
+            "gather_conv": dict(ms=0.0, plain_ms=0.0, library_ms=None, bytes=0.0,
+                                flops=0.0, err=0.0)}
+    rec = recs["sorted_lookup"]
+    for keys, perm, q, mode in lookups:
+        got, want = lk.sorted_lookup(keys, perm, q, mode), lk.sorted_lookup_plain(keys, perm, q, mode)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"sorted_lookup {mode} differs from its plain version")
+        ms = cuda_ms(lambda: lk.sorted_lookup(keys, perm, q, mode))
+        plain_ms = cuda_ms(lambda: lk.sorted_lookup_plain(keys, perm, q, mode))
+        flat = q.reshape(-1)
+        lib_ms = cuda_ms(lambda: torch.searchsorted(keys, flat, side="left"))
+        V, (M, G), D = keys.shape[0], q.shape, (3 if mode == "triple" else 1)
+        rec["ms"] += ms
+        rec["plain_ms"] += plain_ms
+        rec["library_ms"] += lib_ms
+        rec["bytes"] += 4 * (M * G + M * G * D + V * (1 if perm is None else 2))
+        rec["ops"] += M * G * D * max(1, V.bit_length())  # one compare per probe
+        print(f"  sorted_lookup  {mode:8s} V={V:8d} M={M:7d}x{G}  kernel {ms:.4f} ms  "
+              f"plain {plain_ms:.4f} ms  searchsorted {lib_ms:.4f} ms")
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+    rec = recs["gather_conv"]
+    seen = collections.Counter(
+        (f.shape, idx.data_ptr(), w.shape) for f, idx, w in convs)
+    done = set()
+    for f_path, idx, w_path in convs:
+        key = (f_path.shape, idx.data_ptr(), w_path.shape)
+        if key in done:
+            continue
+        done.add(key)
+        n = seen[key]
+        (V, cin), (M, K), co = f_path.shape, idx.shape, w_path.shape[2]
+        f32 = torch.randn(V, cin, generator=g).to(f_path.device)
+        w32 = (torch.randn(K, cin, co, generator=g) / (K * cin) ** 0.5).to(f_path.device)
+        for dt, atol, rtol in ((torch.float32, 1e-4, 0.0), (torch.bfloat16, 2e-2, 2e-2)):
+            f, w = f32.to(dt), w32.to(dt)
+            got, want = gc.gather_conv(f, idx, w), gc.gather_conv_plain(f, idx, w)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            bad = float(((got - want).abs() - rtol * want.abs()).max())
+            check(bad <= atol, f"gather_conv {cin}->{co} M={M} {dt}: max abs err {err}")
+            rec["err"] = max(rec["err"], err)
+        f, w = f32.to(torch.bfloat16), w32.to(torch.bfloat16)
+        ms = cuda_ms(lambda: gc.gather_conv(f, idx, w))
+        plain_ms = cuda_ms(lambda: gc.gather_conv_plain(f, idx, w))
+        hits = int(((idx >= 0) & (idx < V)).sum())
+        rec["ms"] += n * ms
+        rec["plain_ms"] += n * plain_ms
+        rec["bytes"] += n * (V * cin * 2 + M * K * 4 + K * cin * co * 2 + M * co * 4)
+        rec["flops"] += n * 2.0 * hits * cin * co
+        print(f"  gather_conv    {cin:3d}->{co:3d} K={K:2d} x{n}  V={V:7d} M={M:7d} "
+              f"hits={hits:9d}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  (bf16)")
+    return recs
+
+
+def drive_batched(model, frame, steps):
+    """Run `steps` step_frames calls of a fresh 4-lane pipeline (lanes
+    reset on the first step, as bench.py does), fetching outputs two steps
+    deep; returns the outputs."""
+    from shasta_tpu_torch.infer import BatchedScenePipeline
+
+    pipe = BatchedScenePipeline(model, cls_id=2, batch=LANES)
+    outs, pending = [], collections.deque()
+    for i in range(steps):
+        out = pipe.step_frames(frame, [60] * LANES, [i == 0] * LANES,
+                               [0.5] * LANES).start_fetch()
+        pending.append(out)
+        outs.append(out)
+        if len(pending) > 2:
+            pending.popleft().tid
+    for out in pending:
+        out.tid
+    return outs
+
+
 def drive_pipeline(model, frame, n_curr, frames):
     """Run `frames` step_frame calls of a fresh pipeline, fetching outputs
     two frames deep; returns the outputs."""
@@ -193,9 +329,9 @@ def main() -> int:
     from shasta_tpu_torch import resolve_device
     from shasta_tpu_torch.convert import load_jax_variables, random_jax_variables
     from shasta_tpu_torch.data.synthetic import make_batch
-    from shasta_tpu_torch.infer import ScenePipeline
+    from shasta_tpu_torch.infer import FRAME_KEYS, BatchedScenePipeline, ScenePipeline
     from shasta_tpu_torch.models import ShastaConfig, ShastaModel
-    from shasta_tpu_torch.ops.kernels import block_conv, build, window_conv
+    from shasta_tpu_torch.ops.kernels import block_conv, build, gather_conv, lookup, window_conv
     from shasta_tpu_torch.profile_step import car_setup
 
     # 1. the card
@@ -216,16 +352,23 @@ def main() -> int:
     print(f"phase 2: built {sorted(report)} in {time.perf_counter() - t0:.1f} s")
     for name, (_, log) in report.items():
         print(f"--- {name} ptxas ---\n{log.strip()}")
-    build.library("block_conv"), build.library("window_conv")
+    for name in build.SOURCES:
+        build.library(name)
 
     # bench-scale frame, its host plans and the bf16 model (bench.py:39-41,121-148)
     t0 = time.perf_counter()
     cfg, batch, plans, model, frame = car_setup(dev)
     print(f"set-up (frame, host plans, weights): {time.perf_counter() - t0:.2f} s")
+    # the 4-lane frame and model of bench.py --lanes 4 (bench.py:75-97,121-134)
+    t0 = time.perf_counter()
+    cfg4, _, _, model4, frame4 = car_setup(dev, lanes=LANES)
+    print(f"set-up, {LANES} lanes (frames, weights): {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels against their plain versions
     print("phase 3: kernels vs plain versions at main-path shapes")
     per_kernel = phase_kernels(cfg, batch, plans, dev)
+    print(f"phase 3b: kernels vs plain versions at the {LANES}-lane step's shapes")
+    per_kernel.update(phase_batched_kernels(model4, frame4))
 
     # 4. full-width serving step
     drive_pipeline(model, frame, 60, WARMUP_FRAMES)
@@ -281,25 +424,112 @@ def main() -> int:
         check(np.allclose(a.ref, b.ref, atol=1e-4), "small config: ref differs")
     print("phase 5: small config cuda == cpu")
 
+    # 6. full-width scene-batched step, 4 lanes
+    counted = (block_conv.rulebook_conv, window_conv.keyed_conv, lookup.sorted_lookup,
+               gather_conv.gather_conv)
+    drive_batched(model4, frame4, 2)
+    torch.cuda.synchronize()
+    for k in counted:
+        k.launches = 0
+    sps_runs, outs4 = [], []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        outs4 += drive_batched(model4, frame4, TIMED_STEPS)
+        torch.cuda.synchronize()
+        sps_runs.append(LANES * TIMED_STEPS / (time.perf_counter() - t0))
+    launches6 = {k.__name__: k.launches for k in counted}
+    launches.update(sorted_lookup=launches6["sorted_lookup"],
+                    gather_conv=launches6["gather_conv"])
+    fps4 = statistics.median(sps_runs)
+    n_steps = TIMED_RUNS * TIMED_STEPS
+    print(f"phase 6: {TIMED_RUNS} runs of {TIMED_STEPS} steps x {LANES} lanes at "
+          f"{[round(x, 3) for x in sps_runs]} frames/s (median {fps4:.3f}); "
+          f"launches {launches6}")
+    check(launches6 == {"rulebook_conv": 0, "keyed_conv": 0, "sorted_lookup": 12 * n_steps,
+                        "gather_conv": 21 * n_steps},
+          f"expected 12 sorted_lookup + 21 gather_conv launches per step, got {launches6}")
+    with torch.no_grad():
+        feat = model4.frame_features(frame4)
+        m1, m2 = model4.affinity_step(frame4["det_boxes"], frame4["det_boxes"], feat, feat)
+    check(tuple(feat.shape) == (LANES,) + want_shape[1:] and bool(torch.isfinite(feat).all()),
+          "4-lane descriptors are not finite")
+    check(torch.allclose(m1.sum(2), torch.ones_like(m1.sum(2)), atol=1e-4)
+          and torch.allclose(m2.sum(1), torch.ones_like(m2.sum(1)), atol=1e-4),
+          "4-lane m1 rows / m2 columns do not sum to 1")
+    for out in outs4:
+        for lane in range(LANES):
+            ids = out.tid[lane][out.used[lane]]
+            check(ids.size > 0 and bool(((ids >= lane * 10**6 + 1)
+                                         & (ids < (lane + 1) * 10**6)).all()),
+                  f"lane {lane}: used ids {ids[:8]} outside its range")
+    print(f"phase 6 checks ok; last ids of lane 3 {outs4[-1].tid[3][:6].tolist()}")
+
+    # 7. small configuration, 2 lanes: cuda against cpu, and lanes against
+    # single-scene pipelines on cuda
+    lanes7 = 2
+    parts = [[make_batch(small_cfg, num_voxels_cap=2500, n_dets=7, seed=10 * lane + t)
+              for t in range(3)] for lane in range(lanes7)]
+    frames7 = [{k: np.concatenate([parts[lane][t][k] for lane in range(lanes7)])
+                for k in FRAME_KEYS} for t in range(3)]
+    runs, models = {}, {}
+    for d in ("cuda", "cpu"):
+        m = models[d] = ShastaModel(small_cfg, device=d)
+        load_jax_variables(m, random_jax_variables(m, seed=1))
+        pipe7 = BatchedScenePipeline(m, cls_id=2, batch=lanes7)
+        runs[d] = [pipe7.step_frames(f, [7] * lanes7, [t == 0] * lanes7, [0.5] * lanes7)
+                   for t, f in enumerate(frames7)]
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        for field in ("tid", "used", "keep", "fn"):
+            check(np.array_equal(getattr(a, field), getattr(b, field)),
+                  f"2 lanes: cuda and cpu differ in {field}")
+        check(np.allclose(a.ref, b.ref, atol=1e-4), "2 lanes: ref differs")
+    for lane in range(lanes7):
+        single = ScenePipeline(models["cuda"], cls_id=2)
+        for t, got in enumerate(runs["cuda"]):
+            s = single.step_frame({k: parts[lane][t][k] for k in FRAME_KEYS}, 7, 0.5)
+            for field in ("used", "keep", "fn"):
+                check(np.array_equal(getattr(got, field)[lane], getattr(s, field)),
+                      f"lane {lane} frame {t}: batched and single differ in {field}")
+            check(np.array_equal(np.where(s.used, got.tid[lane] - lane * 10**6, 0),
+                                 np.where(s.used, s.tid, 0)),
+                  f"lane {lane} frame {t}: batched and single ids differ")
+            check(np.allclose(got.ref[lane], s.ref, atol=1e-4),
+                  f"lane {lane} frame {t}: batched and single ref differ")
+    print("phase 7: 2 lanes cuda == cpu, and each cuda lane == its single-scene run")
+
     kernels = []
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
-                             "shasta_tpu/ops/pallas/block_conv.py:117"),
+                             "shasta_tpu/ops/pallas/block_conv.py:117", "frame"),
            "keyed_conv": ("shasta_tpu_torch/csrc/window_conv.cu",
-                          "shasta_tpu/ops/pallas/window_conv.py:719")}
+                          "shasta_tpu/ops/pallas/window_conv.py:719", "frame"),
+           "sorted_lookup": ("shasta_tpu_torch/csrc/lookup.cu",
+                             "shasta_tpu/ops/pallas/window_conv.py:170", "batched step"),
+           "gather_conv": ("shasta_tpu_torch/csrc/gather_conv.cu",
+                           "shasta_tpu/ops/pallas/window_conv.py:480", "batched step")}
     for name, rec in per_kernel.items():
         t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = rec["flops"] / PEAK_FLOPS["bfloat16"] * 1e3
+        t_ops = (rec["ops"] / INT_OPS_PER_S if "ops" in rec
+                 else rec["flops"] / PEAK_FLOPS["bfloat16"]) * 1e3
+        unit = src[name][2]
+        n_units = n_frames if unit == "frame" else n_steps
         kernels.append({
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1], "launches": launches[name],
+            "launches_per": f"{launches[name] / n_units:g} per {unit} "
+                            f"({launches[name]} over {n_units} {unit}s)",
             "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-            "per": "one frame's launches at bf16 (sum over its convs)",
+            "library_ms": rec.get("library_ms"),
+            "per": (f"one {unit}'s launches (sum over its calls)"
+                    + (" at bf16" if "flops" in rec else "")
+                    + ("; library: torch.searchsorted on the same flattened queries, "
+                       "positions only (no perm gather, no hit test, one search per "
+                       "triple centre)" if name == "sorted_lookup" else "")),
         })
-    print(json.dumps({"frames_per_s": fps, "frames_per_s_runs": fps_runs, "card": smi,
-                      "host": host}))
+    print(json.dumps({"frames_per_s": fps, "frames_per_s_runs": fps_runs,
+                      "lanes4_frames_per_s": fps4, "lanes4_frames_per_s_runs": sps_runs,
+                      "card": smi, "host": host}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

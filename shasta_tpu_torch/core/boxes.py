@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import const
+
 # clockwise unit-square corners minus the 0.5 origin (box_torch_ops.corners_nd)
 _CORNERS_NORM_2D = ((-0.5, -0.5), (-0.5, 0.5), (0.5, 0.5), (0.5, -0.5))
 
@@ -21,7 +23,7 @@ def rotation_2d(points: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 def center_to_corner_box2d(centers: torch.Tensor, dims: torch.Tensor,
                            angles: torch.Tensor) -> torch.Tensor:
     """centers, dims (..., N, 2), angles (..., N) -> (..., N, 4, 2)."""
-    norm = torch.tensor(_CORNERS_NORM_2D, dtype=dims.dtype, device=dims.device)
+    norm = const(_CORNERS_NORM_2D, dims.device, dims.dtype)
     corners = dims[..., None, :] * norm
     corners = rotation_2d(corners, angles)
     return corners + centers[..., None, :]

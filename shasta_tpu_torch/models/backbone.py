@@ -1,4 +1,4 @@
-"""Sparse 3D ResNet trunk (SpMiddleResNetFHD) at B=1: the port of
+"""Sparse 3D ResNet trunk (SpMiddleResNetFHD): the port of
 shasta_tpu/models/backbone.py.
 
 Module and parameter names follow the det3d state_dict that
@@ -6,11 +6,15 @@ shasta_tpu/train/convert.py reads (scn.py:99-161): conv_input.{0,1},
 conv1.{0,1}, conv{2,3,4}.{0,1,3,4} and extra_conv.{0,1}; sparse weights
 keep the spconv-1.x layout (kz, ky, kx, in, out).
 
-The C_in <= 32 convs (conv_input, res0, down1, res1, down2: 11 per frame)
-run `rulebook_conv` on host-built rulebooks (shasta_tpu_torch/plans.py);
-the C_in >= 64 convs (res2, down3, res3, extra: 10 per frame) run
-`keyed_conv` on query keys built on the device, the split of
-backbone.py:210-287.
+Two routes:
+- with host plans (B=1): the C_in <= 32 convs (conv_input, res0, down1,
+  res1, down2: 11 per frame) run `rulebook_conv` on host-built rulebooks
+  (shasta_tpu_torch/plans.py); the C_in >= 64 convs (res2, down3, res3,
+  extra: 10 per frame) run `keyed_conv` on query keys built on the device,
+  the split of backbone.py:210-287;
+- without plans (any B): every index is built on the device through
+  `sorted_lookup` (12 launches per step) and all 21 convs run
+  `gather_conv`, the JAX B > 1 route (backbone.py:217-226).
 """
 from __future__ import annotations
 
@@ -82,19 +86,27 @@ class StridedConvBNReLU(nn.Sequential):
                          *[SparseBasicBlock(c_out) for _ in range(blocks)])
         self.kernel, self.stride, self.padding = kernel, stride, padding
 
-    def forward(self, st: sp.SparseTensor, out_keys, index_of, compute_dtype=None):
-        """out_keys: the host-built output set; index_of(out_coords,
-        out_valid) gives the conv's index. Returns the strided output
-        only; the backbone drives the blocks (they need the stage index)."""
-        coords, valid, shape = sp.decode_strided_keys(
-            out_keys, st.shape, self.kernel, self.stride, self.padding,
-            st.batch_size)
-        f = self[0](st.feats, index_of(coords, valid), valid, compute_dtype)
-        f = torch.relu(self[1](f, valid))
-        return sp.SparseTensor(f, coords, valid, shape, st.batch_size)
+    def forward(self, st: sp.SparseTensor, plan: sp.StridedPlan, compute_dtype=None):
+        """The strided conv over `plan` (output set and index), BN, ReLU.
+        Returns the strided output only; the backbone drives the blocks
+        (they need the stage index)."""
+        f = self[0](st.feats, plan.index, plan.valid, compute_dtype)
+        f = torch.relu(self[1](f, plan.valid))
+        return sp.SparseTensor(f, plan.coords, plan.valid, plan.out_shape, st.batch_size)
+
+    def geometry(self):
+        return self.kernel, self.stride, self.padding
 
     def blocks(self):
         return list(self)[3:]
+
+
+def _planned(st: sp.SparseTensor, stage: StridedConvBNReLU, out_keys, index_of):
+    """StridedPlan from a host-built output set; index_of(out_coords,
+    out_valid) gives the conv's index."""
+    coords, valid, shape = sp.decode_strided_keys(out_keys, st.shape, *stage.geometry(),
+                                                  st.batch_size)
+    return sp.StridedPlan(coords, valid, index_of(coords, valid), shape)
 
 
 def _keyed_subm(st: sp.SparseTensor) -> sp.KeyedIndex:
@@ -107,8 +119,7 @@ def _keyed_strided(st: sp.SparseTensor, stage: StridedConvBNReLU):
     skeys, perm = sp.key_table(st)
 
     def index_of(coords, valid):
-        q = sp.strided_queries(coords, valid, st.shape, stage.kernel,
-                               stage.stride, stage.padding)
+        q = sp.strided_queries(coords, valid, st.shape, *stage.geometry())
         return sp.KeyedIndex(skeys, perm, q)
     return index_of
 
@@ -122,9 +133,12 @@ def _blocks(stage: StridedConvBNReLU, x: sp.SparseTensor, index, dt):
 class SparseBackbone(nn.Module):
     """Returns the dense BEV map NCHW (B, C*D, H, W), channel c*D + d."""
 
-    def __init__(self, num_input_features: int = 5, dtype=None):
+    def __init__(self, num_input_features: int = 5, dtype=None,
+                 caps=(60000, 30000, 15000, 15000)):
         super().__init__()
         self.dtype = dtype  # torch.bfloat16: conv inputs in bf16, f32 sums
+        # output-set caps of conv2, conv3, conv4 and extra_conv (unplanned route)
+        self.caps = tuple(caps)
         self.conv_input = nn.Sequential(
             SubMConv(num_input_features, 16, bias=False), SparseBN(16), nn.ReLU())
         self.conv1 = nn.Sequential(SparseBasicBlock(16), SparseBasicBlock(16))
@@ -136,25 +150,53 @@ class SparseBackbone(nn.Module):
         self.extra_conv = StridedConvBNReLU(128, 128, (3, 1, 1), (2, 1, 1),
                                             (0, 0, 0), blocks=0)
 
-    def forward(self, st: sp.SparseTensor, plans: dict) -> torch.Tensor:
-        dt = self.dtype
-        # stage 0: host rulebook shared by conv_input and res0
-        idx0 = sp.Rulebook(plans["s0_rb"])
+    def _stage0(self, st: sp.SparseTensor, idx0, dt):
+        """conv_input and res0, which share one index."""
         f = self.conv_input[0](st.feats, idx0, st.valid, dt)
         x = st._replace(feats=torch.relu(self.conv_input[1](f, st.valid)))
         for blk in self.conv1:
             x = blk(x, idx0, dt)
+        return x
 
+    def _planned(self, st: sp.SparseTensor, plans: dict) -> sp.SparseTensor:
+        """B=1 with host plans: 11 rulebook_conv + 10 keyed_conv."""
+        dt = self.dtype
+        # stage 0: host rulebook shared by conv_input and res0
+        x = self._stage0(st, sp.Rulebook(plans["s0_rb"]), dt)
         # stages 1-2: output sets and rulebooks from the host
-        x = self.conv2(x, plans["d1_keys"], lambda c, v: sp.Rulebook(plans["d1_rb"]), dt)
+        x = self.conv2(x, _planned(x, self.conv2, plans["d1_keys"],
+                                   lambda c, v: sp.Rulebook(plans["d1_rb"])), dt)
         x = _blocks(self.conv2, x, sp.Rulebook(plans["d1s_rb"]), dt)
-        x = self.conv3(x, plans["d2_keys"], lambda c, v: sp.Rulebook(plans["d2_rb"]), dt)
+        x = self.conv3(x, _planned(x, self.conv3, plans["d2_keys"],
+                                   lambda c, v: sp.Rulebook(plans["d2_rb"])), dt)
         # stages 2-3 and extra: neighbours found by key inside keyed_conv
         x = _blocks(self.conv3, x, _keyed_subm(x), dt)
-        x = self.conv4(x, plans["d3_keys"], _keyed_strided(x, self.conv4), dt)
+        x = self.conv4(x, _planned(x, self.conv4, plans["d3_keys"],
+                                   _keyed_strided(x, self.conv4)), dt)
         x = _blocks(self.conv4, x, _keyed_subm(x), dt)
-        x = self.extra_conv(x, plans["ex_keys"], _keyed_strided(x, self.extra_conv), dt)
+        return self.extra_conv(x, _planned(x, self.extra_conv, plans["ex_keys"],
+                                           _keyed_strided(x, self.extra_conv)), dt)
 
+    def _built(self, st: sp.SparseTensor) -> sp.SparseTensor:
+        """Any B, no plans: every index built on the device through
+        sorted_lookup (4 subm triple + 3 strided triple + 1 strided plain
+        + 4 identity compactions) and all 21 convs on gather_conv. The
+        stage-0 table takes a stable argsort; every strided output set is
+        key-sorted, so later tables need none (backbone.py:210-287)."""
+        dt = self.dtype
+        table = sp.key_table(st)
+        x = self._stage0(st, sp.build_subm_index(st, table), dt)
+        for stage, cap in zip((self.conv2, self.conv3, self.conv4), self.caps):
+            x = stage(x, sp.build_strided_plan(x, *stage.geometry(), cap, table), dt)
+            table = sp.key_table_presorted(x)
+            x = _blocks(stage, x, sp.build_subm_index(x, table), dt)
+        return self.extra_conv(x, sp.build_strided_plan(
+            x, *self.extra_conv.geometry(), self.caps[3], table), dt)
+
+    def forward(self, st: sp.SparseTensor, plans: dict | None = None) -> torch.Tensor:
+        """plans: the host plans of a B=1 frame (shasta_tpu_torch/plans.py),
+        or None to build every index on the device."""
+        x = self._built(st) if plans is None else self._planned(st, plans)
         dense = sp.to_dense(x)  # (B, D, H, W, C)
         B, D, H, W, C = dense.shape
         # torch views (N, C, D, H, W) as (N, C*D, H, W): channel c*D + d

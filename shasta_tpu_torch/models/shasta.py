@@ -56,7 +56,9 @@ class ShastaModel(AffinityNet):
         super().__init__(cfg.max_obj, cfg.num_feats, cfg.num_point,
                          cfg.share_conv_channel)
         self.cfg = cfg
-        self.backbone = SparseBackbone(cfg.num_input_features, dtype=cfg.dtype)
+        self.backbone = SparseBackbone(
+            cfg.num_input_features, dtype=cfg.dtype,
+            caps=(cfg.cap_conv2, cfg.cap_conv3, cfg.cap_conv4, cfg.cap_extra))
         self.neck = RPN(dtype=cfg.dtype)
         self.shared_conv = SharedConv(512, cfg.share_conv_channel, dtype=cfg.dtype)
         self.device = resolve_device(device)
@@ -64,28 +66,31 @@ class ShastaModel(AffinityNet):
         self.requires_grad_(False)
 
     def bev_single(self, frame: dict) -> torch.Tensor:
-        """Shared-conv BEV map (1, H, W, 64), channels last, for ONE frame.
-        frame: voxels (1, V, P, 5), num_points (1, V), coordinates
-        (1, V, 3) [z, y, x], voxels_valid (1, V) and the plan_* arrays of
-        shasta_tpu_torch/plans.py, all tensors on the model's device."""
+        """Shared-conv BEV map (B, H, W, 64), channels last, for ONE frame
+        of each of B scenes. frame: voxels (B, V, P, 5), num_points (B, V),
+        coordinates (B, V, 3) [z, y, x], voxels_valid (B, V), all tensors on
+        the model's device; optionally, at B=1, the plan_* arrays of
+        shasta_tpu_torch/plans.py. Row b*V + v carries batch index b."""
         B, V = frame["voxels"].shape[:2]
-        assert B == 1, "the serving trunk runs one frame (B=1)"
         c = self.cfg
-        feats = voxel_mean_vfe(frame["voxels"].reshape(V, *frame["voxels"].shape[2:]),
-                               frame["num_points"].reshape(V), c.num_input_features)
-        coords = torch.cat([torch.zeros((V, 1), dtype=torch.int32, device=feats.device),
-                            frame["coordinates"].reshape(V, 3).to(torch.int32)], dim=1)
-        st = sp.SparseTensor(feats, coords, frame["voxels_valid"].reshape(V),
-                             tuple(c.grid_shape), 1)
         plans = {k[5:]: v for k, v in frame.items() if k.startswith("plan_")}
+        assert B == 1 or not plans, "host plans serve the B=1 step"
+        feats = voxel_mean_vfe(frame["voxels"].reshape(B * V, *frame["voxels"].shape[2:]),
+                               frame["num_points"].reshape(B * V), c.num_input_features)
+        bidx = torch.arange(B, dtype=torch.int32, device=feats.device).repeat_interleave(V)
+        coords = torch.cat([bidx[:, None],
+                            frame["coordinates"].reshape(B * V, 3).to(torch.int32)], dim=1)
+        st = sp.SparseTensor(feats, coords, frame["voxels_valid"].reshape(B * V),
+                             tuple(c.grid_shape), B)
         with record_function("step.sparse_trunk"):
-            bev = self.backbone(st, plans)
+            bev = self.backbone(st, plans or None)
         with record_function("step.neck"):
             bev = self.shared_conv(self.neck(bev))
         return bev.permute(0, 2, 3, 1)
 
     def frame_features(self, frame: dict) -> torch.Tensor:
-        """Trunk + BEV descriptor sampling for ONE frame -> (1, N, 320) f32."""
+        """Trunk + BEV descriptor sampling for ONE frame of each of B
+        scenes -> (B, N, 320) f32."""
         c = self.cfg
         bev = self.bev_single(frame)
         pts = box_points_5(frame["det_boxes"][:, :, :7])

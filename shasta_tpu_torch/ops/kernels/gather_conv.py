@@ -1,0 +1,68 @@
+"""gather_conv: the port of the TPU kernel `_conv_kernel`
+(shasta_tpu/ops/pallas/window_conv.py:480, launched by `_conv_call` :545,
+wrapped by `windowed_gather_matmul` :568).
+
+    gather_conv(feats (V, Cin), gather (M, K) int32, weight (K, Cin, Co))
+        -> (M, Co) f32,   out[m] = sum_k feats[gather[m, k]] @ weight[k]
+
+The gather table is the JAX NeighborIndex as it is: a row >= V (the JAX
+miss) or < 0 adds nothing. K is 27 or 3 (the extra conv); feats and
+weight share one dtype, f32 or bf16; the sum is f32.
+
+The CUDA kernel (csrc/gather_conv.cu, core in csrc/gather_conv.cuh, shared
+with rulebook_conv and keyed_conv) gathers rows by index from L2 into
+shared memory and accumulates in f32 registers: one launch for all lanes,
+no windows and no coverage check. What bounds it on the H100: bytes (the
+gather table M*K*4, the output M*Co*4, the table and W) against
+2*hits*Cin*Co FLOPs; the scene-batched step's convs sit on the bytes side.
+
+On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
+it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .block_conv import _ptr, check_conv_args, rulebook_conv_plain
+
+# The plain version is the XLA path of ops/sparse.py:217-224: pad a zero
+# row, gather (M, K, Cin), one f32 matmul; a row outside [0, V) takes the
+# zero row. rulebook_conv's plain version is that same function.
+gather_conv_plain = rulebook_conv_plain
+
+
+@functools.cache
+def _launch_fn():
+    from .build import library
+
+    fn = library("gather_conv").gather_conv_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gather_conv(feats: torch.Tensor, gather: torch.Tensor,
+                weight: torch.Tensor) -> torch.Tensor:
+    if gather.dim() != 2:
+        raise ValueError("gather must be (M, K)")
+    M, K = gather.shape
+    check_conv_args(feats, weight, (gather,), K)
+    if not feats.is_cuda:
+        return gather_conv_plain(feats, gather, weight)
+    V, Cin = feats.shape
+    Co = weight.shape[2]
+    out = torch.empty((M, Co), dtype=torch.float32, device=feats.device)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    err = _launch_fn()(_ptr(feats), _ptr(gather), _ptr(weight), _ptr(out), V, M,
+                       K, Cin, Co, int(feats.dtype == torch.bfloat16),
+                       ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"gather_conv launch failed: CUDA error {err}")
+    gather_conv.launches += 1
+    return out
+
+
+gather_conv.launches = 0

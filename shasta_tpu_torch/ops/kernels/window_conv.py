@@ -31,19 +31,15 @@ import functools
 import torch
 
 from .block_conv import _ptr, check_conv_args
-
-SENTINEL = 2**31 - 1
+from .lookup import SENTINEL, sorted_lookup_plain
 
 
 def keyed_rows(sorted_keys: torch.Tensor, perm: torch.Tensor,
                queries: torch.Tensor) -> torch.Tensor:
-    """(M, K) int64 input rows of the queries, V for a miss."""
-    V = sorted_keys.shape[0]
-    q = queries.reshape(-1).contiguous()
-    pos = torch.searchsorted(sorted_keys.contiguous(), q, side="left")
-    pos = pos.clamp(max=V - 1)
-    found = (sorted_keys[pos] == q) & (q >= 0) & (q != SENTINEL)
-    return torch.where(found, perm[pos].long(), V).reshape(queries.shape)
+    """(M, K) int64 input rows of the queries, V for a miss: sorted_lookup's
+    plain version, with a query < 0 as a miss too."""
+    q = torch.where(queries < 0, SENTINEL, queries)
+    return sorted_lookup_plain(sorted_keys, perm, q).long()
 
 
 def keyed_conv_plain(sorted_keys, perm, queries, feats, weight) -> torch.Tensor:

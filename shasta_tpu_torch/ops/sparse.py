@@ -6,23 +6,44 @@ A sparse tensor is a fixed-capacity set of rows: features (V, C), coords
 linear keys with a per-frame stride of Z*Y*X+1, so each frame owns one
 filler key that real queries never hit (invalid rows map to it).
 
-Neighbours reach the conv kernels in one of two forms:
+Neighbours reach the conv kernels in one of three forms:
 - `Rulebook`: an (M, K) int32 table of input rows, -1 for a miss, built on
-  the host (shasta_tpu_torch/plans.py) for the C_in <= 32 stages;
+  the host (shasta_tpu_torch/plans.py) for the C_in <= 32 stages of the
+  B=1 planned step;
 - `KeyedIndex`: the input rows' sorted keys with their argsort and the
   (M, K) query keys, resolved by binary search inside the conv kernel for
-  the C_in >= 64 stages.
-Both are exact for any physical row order.
+  the C_in >= 64 stages of that step;
+- `NeighborIndex`: the JAX package's (M, K) int32 gather table, V for a
+  miss, built on the device by `build_subm_index` / `build_strided_plan`
+  through `sorted_lookup` for every stage of the unplanned (scene-batched)
+  step.
+All are exact for any physical row order.
+
+Layout of record at B > 1: global, not per lane. The JAX package's Pallas
+path compacts each strided output set into per-lane slot budgets
+(shasta_tpu/ops/sparse.py:387-470) only so that each lane's table fits
+the TPU's VMEM; a binding budget raises a soft flag and serving replays
+the scene through the XLA program, whose global front-packed layout
+(lane_slots == 1, :471-484) is the result of record. The port computes
+that result directly: one output set per stage for all lanes, truncated
+at the stage cap, invalid rows at b = batch_size; one binary search over
+the globally ascending key table (frames own disjoint key ranges, so it
+equals the JAX lane-split search); one kernel launch per lookup and per
+conv for all lanes.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
+from ..device import const
 from ..plans import tap_offsets
 from .kernels.block_conv import rulebook_conv
-from .kernels.window_conv import SENTINEL, keyed_conv
+from .kernels.gather_conv import gather_conv
+from .kernels.lookup import SENTINEL, sorted_lookup
+from .kernels.window_conv import keyed_conv
 
 
 class SparseTensor(NamedTuple):
@@ -41,6 +62,19 @@ class KeyedIndex(NamedTuple):
     sorted_keys: torch.Tensor  # (V,) int32 ascending
     perm: torch.Tensor  # (V,) int32: sorted position -> physical row
     queries: torch.Tensor  # (M, K) int32 keys, SENTINEL = no neighbour
+
+
+class NeighborIndex(NamedTuple):
+    gather: torch.Tensor  # (M, K) int32 input rows, V = miss
+
+
+class StridedPlan(NamedTuple):
+    """Output position set and conv index of one strided conv."""
+
+    coords: torch.Tensor  # (M, 4) int32
+    valid: torch.Tensor  # (M,) bool
+    index: tuple  # Rulebook | KeyedIndex | NeighborIndex
+    out_shape: tuple
 
 
 def encode_keys(coords: torch.Tensor, valid: torch.Tensor, shape,
@@ -64,6 +98,14 @@ def key_table(st: SparseTensor):
     return keys[perm], perm.to(torch.int32)
 
 
+def key_table_presorted(st: SparseTensor):
+    """Key table of a tensor whose rows are already key-sorted with the
+    invalid rows at the tail, as every strided output set is: no argsort
+    (ops/sparse.py:120-125)."""
+    keys = encode_keys(st.coords, st.valid, st.shape, st.batch_size)
+    return keys, torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
+
+
 def _query_keys(b, zyx, in_range, shape):
     Z, Y, X = shape
     cell = (zyx[..., 0] * Y + zyx[..., 1]) * X + zyx[..., 2]
@@ -74,10 +116,10 @@ def _query_keys(b, zyx, in_range, shape):
 def subm_queries(st: SparseTensor, kernel: Sequence[int] = (3, 3, 3)) -> torch.Tensor:
     """(V, K) int32 neighbour keys of a submanifold conv (ops/sparse.py:167-182);
     SENTINEL where the tap leaves the grid or the row is padding."""
-    off = torch.as_tensor(tap_offsets(kernel, True), device=st.coords.device)
+    dev = st.coords.device
     c = st.coords.long()
-    n = c[:, None, 1:4] + off[None]
-    dims = torch.tensor(st.shape, device=n.device)
+    n = c[:, None, 1:4] + const(tap_offsets(kernel, True), dev)[None]
+    dims = const(st.shape, dev)
     in_range = ((n >= 0) & (n < dims)).all(-1) & st.valid[:, None]
     return _query_keys(c[:, 0], n, in_range, st.shape)
 
@@ -86,12 +128,11 @@ def strided_queries(out_coords: torch.Tensor, out_valid: torch.Tensor,
                     in_shape, kernel, stride, padding) -> torch.Tensor:
     """(M, K) int32 input keys of a strided conv at in = o*s + k - p
     (ops/sparse.py:612-624); SENTINEL outside the grid or on padding rows."""
-    off = torch.as_tensor(tap_offsets(kernel, False), device=out_coords.device)
-    s = torch.tensor(stride, device=off.device)
-    p = torch.tensor(padding, device=off.device)
+    dev = out_coords.device
     c = out_coords.long()
-    ic = c[:, None, 1:4] * s + off[None] - p
-    dims = torch.tensor(in_shape, device=off.device)
+    ic = (c[:, None, 1:4] * const(stride, dev) + const(tap_offsets(kernel, False), dev)[None]
+          - const(padding, dev))
+    dims = const(in_shape, dev)
     in_range = ((ic >= 0) & (ic < dims)).all(-1) & out_valid[:, None]
     return _query_keys(c[:, 0], ic, in_range, in_shape)
 
@@ -122,6 +163,69 @@ def decode_strided_keys(out_keys: torch.Tensor, in_shape, kernel, stride,
     return coords, valid, (OZ, OY, OX)
 
 
+def _dx_triples(queries: torch.Tensor, table, V: int) -> torch.Tensor:
+    """(M, K) gather rows of query keys whose taps come in unit-spaced dx
+    triples (kx = 3): the K/3 centre keys go through one triple-mode
+    lookup, then the in-range mask kills a ±1 probe that wrapped into a
+    neighbouring row (ops/sparse.py:183-193, :532-539)."""
+    sorted_keys, perm = table
+    out = sorted_lookup(sorted_keys, perm, queries[:, 1::3].contiguous(), "triple")
+    return torch.where(queries != SENTINEL, out, V)
+
+
+def build_subm_index(st: SparseTensor, table) -> NeighborIndex:
+    """(V, 27) gather rows of a 3x3x3 submanifold conv over `table`, the
+    tensor's (sorted keys, perm) (ops/sparse.py:147-195)."""
+    return NeighborIndex(_dx_triples(subm_queries(st), table, st.coords.shape[0]))
+
+
+def _strided_candidates(st: SparseTensor, kernel, stride, padding):
+    """(V*C,) int32 candidate output keys of a strided conv, SENTINEL where
+    masked: per axis only the taps k = (in + p) % s + i*s with i <
+    ceil(K_a/s) give an integral output (ops/sparse.py:361-385)."""
+    dev = st.coords.device
+    out_shape = strided_out_shape(st.shape, kernel, stride, padding)
+    counts = [-(-k // s) for k, s in zip(kernel, stride)]
+    i_grid = np.stack(np.meshgrid(*[np.arange(c) for c in counts], indexing="ij"),
+                      axis=-1).reshape(-1, 3)
+    s, p = const(stride, dev), const(padding, dev)
+    c = st.coords.long()
+    zyx = c[:, 1:4]
+    taps = torch.remainder(zyx + p, s)[:, None, :] + const(i_grid, dev) * s
+    # exact where kept, negative before the mask: floor division
+    o = torch.div(zyx[:, None, :] + p - taps, s, rounding_mode="floor")
+    ok = ((taps < const(kernel, dev)).all(-1) & (o >= 0).all(-1)
+          & (o < const(out_shape, dev)).all(-1) & st.valid[:, None])
+    OZ, OY, OX = out_shape
+    cand = c[:, :1] * (OZ * OY * OX + 1) + (o[..., 0] * OY + o[..., 1]) * OX + o[..., 2]
+    return torch.where(ok, cand, SENTINEL).to(torch.int32).reshape(-1), out_shape
+
+
+def build_strided_plan(st: SparseTensor, kernel, stride, padding, max_out: int,
+                       table) -> StridedPlan:
+    """The exact spconv output set of a strided conv and its gather index
+    (ops/sparse.py:325-543, global layout): candidate keys, sort, head
+    flags; slot j takes the first sorted position where cumsum(head) ==
+    j + 1 (an identity-mode lookup), so the set is ascending, deduplicated
+    and truncated to the max_out smallest keys."""
+    cand, out_shape = _strided_candidates(st, kernel, stride, padding)
+    s = torch.sort(cand).values
+    head = (s != torch.cat([s.new_full((1,), -1), s[:-1]])) & (s != SENTINEL)
+    ch = torch.cumsum(head, 0, dtype=torch.int32)
+    slots = torch.arange(1, max_out + 1, dtype=torch.int32, device=s.device)[:, None]
+    pos = sorted_lookup(ch, None, slots, "identity")[:, 0].long()
+    VC = s.shape[0]
+    out_keys = torch.where(pos < VC, s[pos.clamp(max=VC - 1)], SENTINEL)
+    coords, valid, _ = decode_strided_keys(out_keys, st.shape, kernel, stride,
+                                           padding, st.batch_size)
+    q = strided_queries(coords, valid, st.shape, kernel, stride, padding)
+    if kernel[2] == 3:
+        gather = _dx_triples(q, table, st.coords.shape[0])
+    else:  # the extra conv's (3, 1, 1) kernel
+        gather = sorted_lookup(*table, q, "plain")
+    return StridedPlan(coords, valid, NeighborIndex(gather), out_shape)
+
+
 def sparse_conv(feats: torch.Tensor, index, weight: torch.Tensor,
                 compute_dtype=None) -> torch.Tensor:
     """One sparse conv, (M, Co) f32: inputs rounded to `compute_dtype`
@@ -131,6 +235,8 @@ def sparse_conv(feats: torch.Tensor, index, weight: torch.Tensor,
     w = weight.to(dt).contiguous()
     if isinstance(index, Rulebook):
         return rulebook_conv(f, index.nbr, w)
+    if isinstance(index, NeighborIndex):
+        return gather_conv(f, index.gather, w)
     return keyed_conv(index.sorted_keys, index.perm, index.queries, f, w)
 
 

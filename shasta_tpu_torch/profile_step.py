@@ -1,27 +1,33 @@
 """Where the time of one serving step goes, on the card.
 
-    python -m shasta_tpu_torch.profile_step [--frames 10]
+    python -m shasta_tpu_torch.profile_step [--frames 10] [--lanes 1]
 
 Sets up the bench-scale car frame (`car_setup`, shared with chip_smoke.py:
-V=120k voxels, max_obj 90, 60 real dets, caps 50k/25k/12k/12k, bf16
-trunk, random weights from a numpy seed), warms up, then profiles
-`--frames` step_frame calls with torch.profiler and prints: host wall
-time per frame, device busy time per frame and its share of the wall,
-the step's record_function spans (host time and the device time
-of their kernels' range), and the kernels by device time.
-Needs a CUDA card.
+V=120k voxels per lane, max_obj 90, 60 real dets, caps 50k/25k/12k/12k
+per lane, bf16 trunk, random weights from a numpy seed), warms up, then
+profiles `--frames` steps with torch.profiler: ScenePipeline.step_frame
+with host plans at --lanes 1, BatchedScenePipeline.step_frames over
+--lanes scene lanes otherwise (bench.py --lanes N). Prints, per step:
+host wall time, device busy time and its share of the wall, the step's
+record_function spans (host time and the device time of their kernels'
+range), the kernels by device time, and the host-device synchronisations
+inside one more step (torch.cuda's sync debug mode: a call that makes the
+host wait for the card, such as a copy from pageable memory or an
+.item()). Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import time
+import warnings
 
+import numpy as np
 import torch
 
 from .convert import load_jax_variables, random_jax_variables
 from .data.synthetic import make_batch
 from .device import resolve_device
-from .infer import FRAME_KEYS, ScenePipeline
+from .infer import FRAME_KEYS, BatchedScenePipeline, ScenePipeline
 from .models import ShastaConfig, ShastaModel
 from .plans import frame_plans
 
@@ -30,36 +36,77 @@ CAR = dict(max_obj=90, cap_conv2=50000, cap_conv3=25000, cap_conv4=12000,
 N_DETS = 60
 
 
-def car_setup(dev, dtype=torch.bfloat16, seed: int = 0):
-    """(cfg, numpy batch, plans on dev, model, frame on dev) at the bench
-    shape of bench.py:39-41,75-97,121-148."""
-    cfg = ShastaConfig(**CAR, dtype=dtype)
-    batch = make_batch(cfg, num_voxels_cap=120000, n_dets=N_DETS, seed=seed)
-    plans = {k: torch.from_numpy(v).to(dev) for k, v in frame_plans(
-        batch["coordinates"][0], batch["voxels_valid"][0], cfg).items()}
+def car_setup(dev, dtype=torch.bfloat16, seed: int = 0, lanes: int = 1):
+    """(cfg, numpy batch, plans on dev or None, model, frame on dev) at the
+    bench shape of bench.py:39-41,75-97,121-148: at lanes == 1 one frame
+    with its host plans; at lanes > 1 the frames of seeds seed..seed+B-1
+    concatenated (B lanes, no plans) and the stage caps times B."""
+    cfg = ShastaConfig(**{k: v * (lanes if k.startswith("cap_") else 1)
+                          for k, v in CAR.items()}, dtype=dtype)
+    parts = [make_batch(cfg, num_voxels_cap=120000, n_dets=N_DETS, seed=seed + s)
+             for s in range(lanes)]
+    batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
     model = ShastaModel(cfg, device=dev)
     load_jax_variables(model, random_jax_variables(model, seed=seed))
     frame = {k: torch.as_tensor(batch[k]).to(dev) for k in FRAME_KEYS}
-    frame.update({"plan_" + k: v for k, v in plans.items()})
+    plans = None
+    if lanes == 1:
+        plans = {k: torch.from_numpy(v).to(dev) for k, v in frame_plans(
+            batch["coordinates"][0], batch["voxels_valid"][0], cfg).items()}
+        frame.update({"plan_" + k: v for k, v in plans.items()})
     return cfg, batch, plans, model, frame
+
+
+def step_fn(model, frame, lanes: int):
+    """A fresh pipeline's step on `frame` at N_DETS real dets, lag 0.5:
+    ScenePipeline at one lane, BatchedScenePipeline (reset on its first
+    step) above."""
+    if lanes == 1:
+        pipe = ScenePipeline(model, cls_id=2)
+        return lambda: pipe.step_frame(frame, N_DETS, 0.5)
+    pipe = BatchedScenePipeline(model, cls_id=2, batch=lanes)
+    first = [True]
+
+    def step():
+        out = pipe.step_frames(frame, [N_DETS] * lanes, [first[0]] * lanes,
+                               [0.5] * lanes)
+        first[0] = False
+        return out
+    return step
+
+
+def sync_calls(step) -> list[str]:
+    """Messages of the host-device synchronisations inside one `step()`,
+    as torch.cuda's sync debug mode reports them (a prototype: it may miss
+    some, never invents one)."""
+    torch.cuda.set_sync_debug_mode("warn")  # warns once that it is a prototype
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out.tid
+    return [str(w.message) for w in caught]
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=10)
+    ap.add_argument("--lanes", type=int, default=1)
     args = ap.parse_args()
     from torch.profiler import ProfilerActivity, profile
 
     dev = resolve_device("cuda")
-    _, _, _, model, frame = car_setup(dev)
-    pipe = ScenePipeline(model, cls_id=2)
+    _, _, _, model, frame = car_setup(dev, lanes=args.lanes)
+    step = step_fn(model, frame, args.lanes)
     for _ in range(3):
-        pipe.step_frame(frame, N_DETS, 0.5).tid
+        step().tid
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.frames):
-            out = pipe.step_frame(frame, N_DETS, 0.5)
+            out = step()
         out.tid
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / args.frames * 1e3
@@ -70,21 +117,25 @@ def main() -> None:
     kernels = [e for e in events if e.device_type == cuda and not e.is_user_annotation
                and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / args.frames
-    print(f"per frame: host wall {wall:.3f} ms, device busy {busy:.3f} ms "
+    print(f"per step: host wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / wall:.1f}% of the wall; profiler on)")
-    print("spans (ms per frame: host, device range):")
+    print("spans (ms per step: host, device range):")
     device_span = {e.key: e.device_time_total for e in events
                    if e.is_user_annotation and e.device_type == cuda}
     for e in events:
         if e.key.startswith("step.") and e.device_type != cuda:
             print(f"  {e.key:18s} {e.cpu_time_total / 1e3 / args.frames:9.3f} "
                   f"{device_span.get(e.key, 0) / 1e3 / args.frames:9.3f}")
-    print("kernels by device time (ms per frame, launches per frame):")
+    print("kernels by device time (ms per step, launches per step):")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]:
         print(f"  {e.self_device_time_total / 1e3 / args.frames:8.4f}  "
               f"{e.count / args.frames:6.1f}  {e.key[:90]}")
     n_launch = sum(e.count for e in kernels) / args.frames
-    print(f"device kernels and copies per frame: {n_launch:.0f}")
+    print(f"device kernels and copies per step: {n_launch:.0f}")
+    syncs = sync_calls(step)
+    print(f"host-device synchronisations in one step: {len(syncs)}")
+    for msg in sorted(set(syncs)):
+        print(f"  {syncs.count(msg)}x {msg[:100]}")
 
 if __name__ == "__main__":
     main()

@@ -1,7 +1,7 @@
 """On-device scene tracker: the port of shasta_tpu/tracker/scan_tracker.py.
 
 A fixed-capacity track table (struct of tensors) advanced one frame per
-`step_frame` call, with the semantics of PubTracker/PubTrackerMerged:
+`step_frame` call (one scene) or `step_frames` call (B scene lanes), with the semantics of PubTracker/PubTrackerMerged:
 back-projected centers, per-class gates, greedy row-order assignment,
 suppression of non-newborn unmatched dets near a track, removal of
 dead-flagged tracks near a det, aging to max_age, per-class score
@@ -73,70 +73,84 @@ class TrackerParams(NamedTuple):
     merged_mode: bool = True
 
 
-def _flag_at(size: int, index: torch.Tensor, device) -> torch.Tensor:
-    """(size,) bool, True at `index` entries < size (entries == size drop)."""
-    out = torch.zeros((size + 1,), dtype=torch.bool, device=device)
-    out[index.long()] = True
-    return out[:size]
+def _flag_at(size: int, index: torch.Tensor) -> torch.Tensor:
+    """(B, size) bool, True at the (B, n) `index` entries < size of each
+    lane (entries == size drop)."""
+    out = torch.zeros((index.shape[0], size + 1), dtype=torch.bool, device=index.device)
+    out.scatter_(1, index.long(), True)
+    return out[:, :size]
 
 
 def step_frame(table: TrackTable, id_count: torch.Tensor, dets: FrameDets,
                time_lag: torch.Tensor, params: TrackerParams):
-    """One tracking step. Returns (new_table, id_count, det_tid, det_used,
-    det_refsc); id_count is a 0-dim int32 tensor."""
-    N = dets.ct.shape[0]
-    CAP = table.ct.shape[0]
-    dev = dets.ct.device
+    """One tracking step of one scene: the B=1 case of `step_frames`.
+    Returns (new_table, id_count, det_tid, det_used, det_refsc); id_count
+    is a 0-dim int32 tensor."""
+    new_table, id_count, tid, used, ref = step_frames(
+        TrackTable(*(t[None] for t in table)), id_count.reshape(1),
+        FrameDets(*(d[None] for d in dets)), torch.as_tensor(time_lag).reshape(1),
+        params)
+    return TrackTable(*(t[0] for t in new_table)), id_count[0], tid[0], used[0], ref[0]
 
-    tracking = -dets.velocity * time_lag
+
+def step_frames(table: TrackTable, id_count: torch.Tensor, dets: FrameDets,
+                time_lag: torch.Tensor, params: TrackerParams):
+    """One tracking step of B scene lanes (the JAX jax.vmap over scenes,
+    infer.py:407-421, written out as a leading lane axis): table fields
+    (B, CAP, ...), id_count (B,) int32, det fields (B, N, ...), time_lag
+    (B,). Returns (new_table, id_count, det_tid, det_used, det_refsc)."""
+    B, N = dets.ct.shape[:2]
+    CAP = table.ct.shape[1]
+
+    tracking = -dets.velocity * time_lag[:, None, None]
     q = dets.ct + tracking  # back-projected det centers
     cls_c = dets.cls.clamp(min=0).long()
     gate = params.gates[cls_c]
 
-    diff = q[:, None, :] - table.ct[None, :, :]
-    dist = torch.sqrt((diff * diff).sum(-1))
-    invalid = ((dets.cls[:, None] != table.cls[None, :])
-               | ~table.used[None, :] | ~dets.valid[:, None]
-               | (dist > gate[:, None]))
+    diff = q[:, :, None, :] - table.ct[:, None, :, :]
+    dist = torch.sqrt((diff * diff).sum(-1))  # (B, N, CAP)
+    invalid = ((dets.cls[:, :, None] != table.cls[:, None, :])
+               | ~table.used[:, None, :] | ~dets.valid[:, :, None]
+               | (dist > gate[:, :, None]))
     dist = torch.where(invalid, BIG, dist)
 
-    match = greedy_assign(dist)  # (N,) track slot or -1
+    match = greedy_assign(dist)  # (B, N) track slot or -1
     matched = match >= 0
     mslot = match.clamp(min=0)
 
-    prev_ref = table.ref_score[mslot]
-    prev_active = table.active[mslot]
+    prev_ref = table.ref_score.gather(1, mslot)
+    prev_active = table.active.gather(1, mslot)
     alpha = params.alpha[cls_c]
     beta = params.beta[cls_c]
     refine = params.refine[cls_c]
     refined = (dets.ref_score > alpha) * beta * dets.score + (1 - beta) * prev_ref
     matched_ref = torch.where(refine, refined, dets.score)
 
-    near_track = dist.min(dim=1).values <= gate
+    near_track = dist.min(dim=2).values <= gate
     suppressed = ~matched & ~dets.newborn & near_track
     is_new = dets.valid & ~matched & ~suppressed
-    new_rank = torch.cumsum(is_new.to(torch.int32), 0).to(torch.int32) - 1
-    new_tid = id_count + 1 + new_rank
-    n_new = is_new.to(torch.int32).sum().to(torch.int32)
+    new_rank = torch.cumsum(is_new.to(torch.int32), 1).to(torch.int32) - 1
+    new_tid = id_count[:, None] + 1 + new_rank
+    n_new = is_new.to(torch.int32).sum(1).to(torch.int32)
     new_ref = torch.where(refine & params.merged_mode, beta * dets.score, dets.score)
 
     det_used = matched | is_new
     zero_i = torch.zeros_like(new_tid)
-    det_tid = torch.where(matched, table.tid[mslot],
+    det_tid = torch.where(matched, table.tid.gather(1, mslot),
                           torch.where(is_new, new_tid, zero_i)).to(torch.int32)
     det_active = torch.where(matched, prev_active + 1,
                              torch.where(is_new, 1, 0)).to(torch.int32)
     det_refsc = torch.where(matched, matched_ref, new_ref)
 
     # ---- aged tracks (compacted into slots N..CAP-1) ----------------------
-    col_matched = _flag_at(CAP, torch.where(matched, mslot, CAP), dev)
+    col_matched = _flag_at(CAP, torch.where(matched, mslot, CAP))
     t_cls = table.cls.clamp(min=0).long()
     t_gate = params.gates[t_cls]
-    near_det = dist.min(dim=0).values <= t_gate
+    near_det = dist.min(dim=1).values <= t_gate
     drop_dead = table.dead & near_det
     C = params.gates.shape[0]
-    class_has_dets = _flag_at(C, torch.where(dets.valid, dets.cls.long(), C), dev)
-    cls_alive = class_has_dets[t_cls] | (not params.merged_mode)
+    class_has_dets = _flag_at(C, torch.where(dets.valid, dets.cls.long(), C))
+    cls_alive = class_has_dets.gather(1, t_cls) | (not params.merged_mode)
     survive = (table.used & ~col_matched & ~drop_dead
                & (table.age < params.max_age) & cls_alive)
     aged_ref = torch.where(params.refine[t_cls] & params.merged_mode,
@@ -144,17 +158,18 @@ def step_frame(table: TrackTable, id_count: torch.Tensor, dets: FrameDets,
                            table.ref_score)
     aged_ct = table.ct - table.tracking  # move forward
 
-    rank = torch.cumsum(survive.to(torch.int32), 0) - 1
+    rank = torch.cumsum(survive.to(torch.int32), 1) - 1
     dest = torch.where(survive & (rank < CAP - N), N + rank, CAP).long()
 
     def build(det_rows, aged_rows, fill=0):
         """Slots [0, N) from the det rows, aged rows scattered to `dest`."""
-        out = det_rows.new_full((CAP + 1,) + det_rows.shape[1:], fill)
-        out[:N] = det_rows
-        out[dest] = aged_rows
-        return out[:CAP]
+        out = det_rows.new_full((B, CAP + 1) + det_rows.shape[2:], fill)
+        out[:, :N] = det_rows
+        idx = dest.reshape(dest.shape + (1,) * (aged_rows.dim() - 2))
+        out.scatter_(1, idx.expand(aged_rows.shape), aged_rows)
+        return out[:, :CAP]
 
-    used_col = det_used[:, None]
+    used_col = det_used[..., None]
     new_table = TrackTable(
         ct=build(torch.where(used_col, dets.ct, 0.0), aged_ct),
         tracking=build(torch.where(used_col, tracking, 0.0), table.tracking),

@@ -38,3 +38,35 @@ def test_kernels_match_plain_versions_on_the_card():
             torch.testing.assert_close(keyed_conv(keys, perm, q, f, w),
                                        keyed_conv_plain(keys, perm, q, f, w),
                                        atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_scene_batched_kernels_match_plain_versions_on_the_card():
+    """sorted_lookup in its three modes (exact) and gather_conv, f32 (TF32
+    off) at 1e-4 and bf16 at 2e-2, against their plain versions on the
+    card (chip_smoke.py phase 3b runs them at the 4-lane step's shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from shasta_tpu_torch.ops.kernels.gather_conv import gather_conv, gather_conv_plain
+    from shasta_tpu_torch.ops.kernels.lookup import sorted_lookup, sorted_lookup_plain
+
+    dev = resolve_device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    V, M = 3000, 2000
+    keys = torch.sort(torch.randint(0, 2 * V, (V,), generator=g, dtype=torch.int32))[0]
+    keys[-200:] = 2 * V  # a run of equal filler keys
+    perm = torch.randperm(V, generator=g).to(torch.int32)
+    q = torch.randint(-2, 2 * V + 2, (M, 9), generator=g, dtype=torch.int32)
+    q[::7] = 2**31 - 1
+    for mode, p in (("plain", perm), ("triple", perm), ("identity", None)):
+        args = (keys, p, q, mode)
+        want = sorted_lookup_plain(*args)
+        got = sorted_lookup(*(a.to(dev) if torch.is_tensor(a) else a for a in args))
+        assert torch.equal(got.cpu(), want), mode
+    for cin, co, K in ((5, 16, 27), (16, 32, 27), (64, 128, 27), (128, 128, 3)):
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            f = torch.randn(V, cin, generator=g).to(dev, dt)
+            w = (torch.randn(K, cin, co, generator=g) * 0.1).to(dev, dt)
+            rows = torch.randint(-1, V + 1, (M, K), generator=g, dtype=torch.int32).to(dev)
+            torch.testing.assert_close(gather_conv(f, rows, w), gather_conv_plain(f, rows, w),
+                                       atol=tol, rtol=tol)

@@ -60,7 +60,10 @@ def test_step_frame_matches_jax_pipeline():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, shasta_tpu_torch, shasta_tpu_torch.infer, "
-            "shasta_tpu_torch.convert, shasta_tpu_torch.ops.kernels.build\n"
+            "shasta_tpu_torch.convert, shasta_tpu_torch.ops.kernels.build, "
+            "shasta_tpu_torch.ops.kernels.lookup, shasta_tpu_torch.ops.kernels.gather_conv, "
+            "shasta_tpu_torch.profile_step\n"
+            "from shasta_tpu_torch.infer import BatchedScenePipeline\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'shasta_tpu')]\n"
             "assert not bad, bad")
@@ -74,3 +77,18 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError):
         ShastaModel(ShastaConfig(**SMALL))
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_device_constants_are_made_once_and_keep_their_values():
+    from shasta_tpu_torch.device import const, upload
+    from shasta_tpu_torch.plans import tap_offsets
+
+    a = const((41, 1440, 1440), "cpu")
+    assert a is const([41, 1440, 1440], "cpu") and a.dtype == torch.int64
+    assert const((1, 2), "cpu") is not const((1.0, 2.0), "cpu")
+    assert const((1.0, 2.0), "cpu").dtype == torch.float32
+    off = tap_offsets((3, 3, 3), True)
+    assert torch.equal(const(off, "cpu"), torch.as_tensor(off))
+    assert const(off, "cpu", torch.int32).dtype == torch.int32
+    up = upload(np.arange(3, dtype=np.float32), "cpu")
+    assert up.device.type == "cpu" and up.tolist() == [0.0, 1.0, 2.0]

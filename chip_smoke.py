@@ -5,12 +5,14 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build all four CUDA kernels from shasta_tpu_torch/csrc (one nvcc per
+  2. build all five CUDA kernels from shasta_tpu_torch/csrc (one nvcc per
      source, in parallel);
   3. hold rulebook_conv and keyed_conv against their plain PyTorch
      versions on the card at the B=1 step's shapes (bench-scale frame:
      120k voxels, stage caps 50k/25k/12k/12k), f32 with TF32 off at atol
-     1e-4 and bf16 at atol/rtol 2e-2, and time both;
+     1e-4 and bf16 at atol/rtol 2e-2, and time both (every kernel time in
+     this script is shasta_tpu_torch.timing.median_ms: the median of calls each
+     between two CUDA events);
   3b. the same for sorted_lookup (all three modes, integer equality) and
      gather_conv at the 4-lane batched step's shapes: the index tables are
      the ones the port builds for the 4-lane frame (480k voxels, caps
@@ -32,9 +34,27 @@ Phases (any failure ends the run with a non-zero exit code):
   7. the small configuration at 2 lanes, f32: the batched step on cuda
      equals it on cpu (ids, used, keep, FN exact; ref at 1e-4), and each
      cuda lane equals a cuda ScenePipeline over that lane's frames (the
-     new route against the B=1 route).
-The line before the last is {"kernels": [...]} (launches from phases 4
-and 6, times from phases 3 and 3b); the last is {"ok": true, "device":
+     new route against the B=1 route);
+  8. the block-extraction probe (shasta_tpu_torch.probe_block_conv) at both
+     probe shapes (s0, s1) on inputs whose rows hit: its run launches
+     block_extract once per (shape, variant), 10 in all; then each variant
+     against the plain version (f32, TF32 off, atol/rtol 1e-5) and the
+     times;
+  9. drive MultiClassScenePipeline over 7 classes at full width (car trunk,
+     per-class max_obj of configs/nusc/*.py: car 90, pedestrian 90, truck
+     60, trailer 60, bus 20, motorcycle 50, bicycle 50; the bench frame with
+     host plans, min(60, max_obj) real dets per class, bf16 trunk, max_age
+     4, random trees from numpy seeds through class_models_from_jax, one
+     shared trunk): warm-up, then three timed runs of 20 frames, frames/s;
+     check the softmax sums, ids unique across classes and stable on the
+     repeated frame, exactly 11 + 10 trunk launches per frame and none of
+     sorted_lookup/gather_conv/block_extract; print the peak device memory;
+  10. a small configuration of 3 classes of different max_obj over 3
+     frames, one class absent on the second: cuda equals cpu (ids, used,
+     keep, FN exact; ref at 1e-4), and car, present on every frame, equals
+     a cuda ScenePipeline of car alone (ids up to the class-major rebase).
+The line before the last is {"kernels": [...]} (launches from phases 4, 6
+and 8, times from phases 3, 3b and 8); the last is {"ok": true, "device":
 {...}}. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -47,39 +67,20 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; f32 off the tensor cores
 TIMED_FRAMES = 20
 TIMED_RUNS = 3
 WARMUP_FRAMES = 3
 LANES = 4
 TIMED_STEPS = 10
-INT_OPS_PER_S = 67e12  # CUDA-core rate (the f32 row of the table) for integer compares
 SMALL = dict(max_obj=10, grid_shape=(41, 80, 80), pc_start=(-3.0, -3.0),
              cap_conv2=2000, cap_conv3=1000, cap_conv4=500, cap_extra=500)
+SMALL_CLASSES = {"car": 10, "pedestrian": 8, "bus": 6}
+PROBE_ITERS = 20
 
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Mean device milliseconds per call, CUDA events around `reps` calls.
-    A spin kernel ahead of them holds the stream until all `reps` calls are
-    queued, so the host's launch cost does not enter the time."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)  # ~10 ms of clock cycles
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def conv_cases(cfg, frame, plans, dev):
@@ -136,6 +137,7 @@ def phase_kernels(cfg, frame, plans, dev):
     import torch
 
     from shasta_tpu_torch.ops.kernels import block_conv, window_conv
+    from shasta_tpu_torch.timing import median_ms
 
     # each as fn(index tensors, feats, weight)
     fns = {"rulebook_conv": (lambda i, f, w: block_conv.rulebook_conv(f, *i, w),
@@ -167,8 +169,8 @@ def phase_kernels(cfg, frame, plans, dev):
             rec["err"] = max(rec["err"], err)
         # main path dtype: bf16
         f, w = f32.to(torch.bfloat16), w32.to(torch.bfloat16)
-        ms = cuda_ms(lambda: kern(idx, f, w))
-        plain_ms = cuda_ms(lambda: plain(idx, f, w))
+        ms = median_ms(lambda: kern(idx, f, w))
+        plain_ms = median_ms(lambda: plain(idx, f, w))
         isz = 2
         nbytes = V * cin * isz + M * K * 4 + K * cin * co * isz + M * co * 4
         if name == "keyed_conv":
@@ -219,6 +221,7 @@ def phase_batched_kernels(model, frame):
 
     from shasta_tpu_torch.ops.kernels import gather_conv as gc
     from shasta_tpu_torch.ops.kernels import lookup as lk
+    from shasta_tpu_torch.timing import median_ms
 
     lookups, convs = batched_calls(model, frame)
     check(len(lookups) == 12 and len(convs) == 21,
@@ -232,10 +235,10 @@ def phase_batched_kernels(model, frame):
         got, want = lk.sorted_lookup(keys, perm, q, mode), lk.sorted_lookup_plain(keys, perm, q, mode)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"sorted_lookup {mode} differs from its plain version")
-        ms = cuda_ms(lambda: lk.sorted_lookup(keys, perm, q, mode))
-        plain_ms = cuda_ms(lambda: lk.sorted_lookup_plain(keys, perm, q, mode))
+        ms = median_ms(lambda: lk.sorted_lookup(keys, perm, q, mode))
+        plain_ms = median_ms(lambda: lk.sorted_lookup_plain(keys, perm, q, mode))
         flat = q.reshape(-1)
-        lib_ms = cuda_ms(lambda: torch.searchsorted(keys, flat, side="left"))
+        lib_ms = median_ms(lambda: torch.searchsorted(keys, flat, side="left"))
         V, (M, G), D = keys.shape[0], q.shape, (3 if mode == "triple" else 1)
         rec["ms"] += ms
         rec["plain_ms"] += plain_ms
@@ -268,8 +271,8 @@ def phase_batched_kernels(model, frame):
             check(bad <= atol, f"gather_conv {cin}->{co} M={M} {dt}: max abs err {err}")
             rec["err"] = max(rec["err"], err)
         f, w = f32.to(torch.bfloat16), w32.to(torch.bfloat16)
-        ms = cuda_ms(lambda: gc.gather_conv(f, idx, w))
-        plain_ms = cuda_ms(lambda: gc.gather_conv_plain(f, idx, w))
+        ms = median_ms(lambda: gc.gather_conv(f, idx, w))
+        plain_ms = median_ms(lambda: gc.gather_conv_plain(f, idx, w))
         hits = int(((idx >= 0) & (idx < V)).sum())
         rec["ms"] += n * ms
         rec["plain_ms"] += n * plain_ms
@@ -318,6 +321,178 @@ def drive_pipeline(model, frame, n_curr, frames):
     return outs
 
 
+def phase_probe():
+    """Phase 8: the probe's run (10 block_extract launches, counted), then
+    each variant against its plain version and the times."""
+    import torch
+
+    from shasta_tpu_torch import probe_block_conv as probe
+    from shasta_tpu_torch.ops.kernels import block_extract as be
+
+    shape_cases = probe.cases("cuda")
+    torch.cuda.synchronize()
+    be.block_extract.launches = 0
+    outs = probe.drive(shape_cases)
+    torch.cuda.synchronize()
+    launches = be.block_extract.launches
+    check(launches == len(probe.SHAPES) * len(be.VARIANTS),
+          f"the probe run launched block_extract {launches} times")
+    recs = probe.measure(shape_cases, outs, PROBE_ITERS)
+    for r in recs:
+        print(f"  block_extract  {r['shape']} {r['variant']:9s} hits {r['hits']:8d} "
+              f"nonzero rows {r['nonzero_rows']:6d}  kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
+              f"max abs err {r['max_abs_err']:.3g}")
+        check(r["ok"], f"block_extract {r['shape']} {r['variant']} differs from its plain "
+                       f"version (max abs err {r['max_abs_err']})")
+        check(r["variant"] == "ohonly" or r["nonzero_rows"] > 0,
+              f"block_extract {r['shape']} {r['variant']}: no row hit")
+    return launches, recs
+
+
+def drive_multiclass(pipe, frame, class_boxes, frames):
+    """`frames` steps of the multi-class pipeline on the repeated frame,
+    outputs fetched two frames deep; returns {name: StepOutput} per frame."""
+    outs, pending = [], collections.deque()
+    for _ in range(frames):
+        packed, names = pipe.dispatch_frame(frame, class_boxes, 0.5)
+        pending.append(packed.start_fetch())
+        outs.append(pipe.unpack_frame(packed, names))
+        if len(pending) > 2:
+            pending.popleft().tid
+    for out in pending:
+        out.tid
+    return outs
+
+
+def small_scene(seed=0):
+    """3 frames of one small scene for SMALL_CLASSES: shared voxels, boxes
+    that move along their velocity; bus absent on the second frame."""
+    import numpy as np
+
+    from shasta_tpu_torch.data.synthetic import make_batch
+    from shasta_tpu_torch.models import ShastaConfig
+
+    rng = np.random.default_rng(seed)
+    base = make_batch(ShastaConfig(**SMALL), num_voxels_cap=2500, n_dets=7, seed=seed)
+    boxes, counts = {}, {"car": 7, "pedestrian": 6, "bus": 4}
+    for i, (n, m) in enumerate(SMALL_CLASSES.items()):
+        b = make_batch(ShastaConfig(**dict(SMALL, max_obj=m)), num_voxels_cap=16,
+                       n_dets=counts[n], seed=seed + 1 + i)["det_boxes"].copy()
+        b[0, :counts[n], :2] = rng.uniform(-2.5, 2.5, (counts[n], 2))
+        boxes[n] = b
+    frames = []
+    for t in range(3):
+        frame = {k: base[k] for k in ("voxels", "num_points", "coordinates", "voxels_valid")}
+        frame["voxels"] = frame["voxels"] + np.float32(0.05 * t)
+        cb = {}
+        for n, b in boxes.items():
+            k = counts[n]
+            b[0, :k, :2] += b[0, :k, 7:9] * 0.2 + rng.normal(0, 0.05, (k, 2))
+            if not (n == "bus" and t == 1):
+                cb[n] = (b.copy(), k - (n == "pedestrian" and t == 2))
+        frames.append((frame, cb))
+    return frames
+
+
+def phase_multiclass(pipe, frame, class_boxes, counted, n_frames):
+    """Phase 9: warm-up, then TIMED_RUNS runs of TIMED_FRAMES frames of the
+    multi-class step on the repeated frame; the launches per frame, the
+    softmax sums, ids unique across classes and stable. Returns (median
+    frames/s, the runs)."""
+    import numpy as np
+    import torch
+
+    drive_multiclass(pipe, frame, class_boxes, WARMUP_FRAMES)
+    torch.cuda.synchronize()
+    for k in counted:
+        k.launches = 0
+    runs, outs = [], []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        outs += drive_multiclass(pipe, frame, class_boxes, TIMED_FRAMES)
+        torch.cuda.synchronize()
+        runs.append(TIMED_FRAMES / (time.perf_counter() - t0))
+    launches = {k.__name__: k.launches for k in counted}
+    fps = statistics.median(runs)
+    print(f"phase 9: {TIMED_RUNS} runs of {TIMED_FRAMES} frames x {len(pipe.max_obj)} "
+          f"classes at {[round(x, 3) for x in runs]} frames/s (median {fps:.3f}); "
+          f"launches {launches}")
+    check(launches == {"rulebook_conv": 11 * n_frames, "keyed_conv": 10 * n_frames,
+                       "sorted_lookup": 0, "gather_conv": 0, "block_extract": 0},
+          f"expected 11 + 10 trunk launches per multi-class frame, got {launches}")
+    C, N = len(pipe.max_obj), pipe.n_max
+    with torch.no_grad():
+        feat, b = pipe._prev_feat[:, 0], pipe._prev_boxes[:, 0]
+        m1, m2 = pipe.head(b[..., :7], b[..., :7], b[..., 7:9], b[..., 9:10], feat, feat,
+                           n_real=pipe._n_real)
+    check(tuple(m1.shape) == (C, N, N + 2)
+          and bool(torch.isfinite(m1).all() & torch.isfinite(m2).all()),
+          "multi-class affinity not finite")
+    check(torch.allclose(m1.sum(2), torch.ones_like(m1.sum(2)), atol=1e-4)
+          and torch.allclose(m2.sum(1), torch.ones_like(m2.sum(1)), atol=1e-4),
+          "multi-class m1 rows / m2 columns do not sum to 1")
+    stable = 0
+    for prev, out in zip(outs, outs[1:]):
+        ids = np.concatenate([o.tid[o.used] for o in out.values()])
+        check(set(out) == set(class_boxes) and ids.size == np.unique(ids).size
+              and bool((ids >= 1).all()), "multi-class ids are not unique across classes")
+        for n, o in out.items():
+            both = prev[n].used & o.used
+            check(np.array_equal(prev[n].tid[both], o.tid[both]),
+                  f"{n}: ids changed on the repeated frame")
+            stable += int(both.sum())
+    check(stable > 0, "no track carried over on the repeated frame")
+    print(f"phase 9 checks ok; {stable} det rows kept their ids; last car ids "
+          f"{outs[-1]['car'].tid[:8].tolist()}")
+    return fps, runs
+
+
+def phase_small_multiclass(dev_a, dev_b):
+    """Phase 10: SMALL_CLASSES over `small_scene` on two devices, equal; and
+    car, present on every frame, against a ScenePipeline of car alone on
+    dev_a (ids up to the class-major rebase)."""
+    import numpy as np
+
+    from shasta_tpu_torch.convert import (class_models_from_jax, load_jax_variables,
+                                          random_jax_variables)
+    from shasta_tpu_torch.infer import MultiClassScenePipeline, ScenePipeline
+    from shasta_tpu_torch.models import ShastaConfig, ShastaModel
+
+    cfgs = {n: ShastaConfig(**dict(SMALL, max_obj=m)) for n, m in SMALL_CLASSES.items()}
+    trees = {n: random_jax_variables(ShastaModel(cfg, device="cpu"), seed=40 + i)
+             for i, (n, cfg) in enumerate(cfgs.items())}
+    models = class_models_from_jax(cfgs, trees)
+    scene = small_scene()
+    runs = {}
+    for d in (dev_a, dev_b):
+        pipe = MultiClassScenePipeline(models, trunk_key="car", device=d)
+        runs[d] = [pipe.step_frame(f, cb, 0.5) for f, cb in scene]
+    for t, (a, b) in enumerate(zip(runs[dev_a], runs[dev_b])):
+        check(set(a) == set(b) == set(scene[t][1]), f"frame {t}: classes differ")
+        for n in a:
+            for field in ("tid", "used", "keep", "fn"):
+                check(np.array_equal(getattr(a[n], field), getattr(b[n], field)),
+                      f"3 classes frame {t}: {dev_a} and {dev_b} differ in {n} {field}")
+            check(np.allclose(a[n].ref, b[n].ref, atol=1e-4),
+                  f"3 classes frame {t}: {n} ref differs")
+    car = ShastaModel(cfgs["car"], device=dev_a)
+    load_jax_variables(car, trees["car"])
+    single = ScenePipeline(car, cls_id=2)
+    relabel = {}
+    for t, ((f, cb), got) in enumerate(zip(scene, runs[dev_a])):
+        s = single.step_frame(dict(f, det_boxes=cb["car"][0]), cb["car"][1], 0.5)
+        g = got["car"]
+        for field in ("used", "keep", "fn"):
+            check(np.array_equal(getattr(g, field), getattr(s, field)),
+                  f"frame {t}: car in the 3-class step and alone differ in {field}")
+        check(np.allclose(g.ref, s.ref, atol=1e-4), f"frame {t}: car ref differs")
+        for a, b in zip(s.tid[s.used], g.tid[g.used]):
+            check(relabel.setdefault(int(a), int(b)) == b,
+                  f"frame {t}: car id {a} alone maps to two ids")
+    check(len(set(relabel.values())) == len(relabel) > 0, "car ids do not relabel 1:1")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -331,8 +506,10 @@ def main() -> int:
     from shasta_tpu_torch.data.synthetic import make_batch
     from shasta_tpu_torch.infer import FRAME_KEYS, BatchedScenePipeline, ScenePipeline
     from shasta_tpu_torch.models import ShastaConfig, ShastaModel
-    from shasta_tpu_torch.ops.kernels import block_conv, build, gather_conv, lookup, window_conv
-    from shasta_tpu_torch.profile_step import car_setup
+    from shasta_tpu_torch.ops.kernels import (block_conv, block_extract, build, gather_conv,
+                                              lookup, window_conv)
+    from shasta_tpu_torch.profile_step import car_setup, multiclass_setup
+    from shasta_tpu_torch.timing import HBM_BYTES_PER_S, PEAK_OPS_PER_S
 
     # 1. the card
     dev = resolve_device("cuda")  # also turns TF32 off
@@ -497,6 +674,34 @@ def main() -> int:
                   f"lane {lane} frame {t}: batched and single ref differ")
     print("phase 7: 2 lanes cuda == cpu, and each cuda lane == its single-scene run")
 
+    # 8. the block-extraction probe
+    print("phase 8: block_extract at the probe's shapes (s0, s1), five variants")
+    launches["block_extract"], probe_recs = phase_probe()
+    per_kernel["block_extract"] = dict(
+        ms=sum(r["ms"] for r in probe_recs), plain_ms=sum(r["plain_ms"] for r in probe_recs),
+        bound=sum(r["bound_ms"] for r in probe_recs), err=max(r["max_abs_err"] for r in probe_recs),
+        by="operations" if sum(r["ops"] for r in probe_recs) / PEAK_OPS_PER_S["float32"]
+        >= sum(r["bytes"] for r in probe_recs) / HBM_BYTES_PER_S else "bytes")
+    print(f"phase 8: {launches['block_extract']} launches in the probe run, every variant "
+          f"== its plain version")
+
+    # 9. the fused 7-class step at full width
+    counted = counted + (block_extract.block_extract,)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    setup9 = multiclass_setup(dev)
+    print(f"set-up, 7 classes (class models on the host, stacked heads): "
+          f"{time.perf_counter() - t0:.2f} s; classes {setup9[0].max_obj}")
+    fps7, fps7_runs = phase_multiclass(*setup9, counted, n_frames)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 9: peak device memory {peak_gb:.3f} GiB ({smi})")
+    del setup9
+
+    # 10. small 3-class configuration: cuda against cpu, and car against a
+    # single-class pipeline on cuda
+    phase_small_multiclass("cuda", "cpu")
+    print("phase 10: 3 classes cuda == cpu, and car == its single-class pipeline")
+
     kernels = []
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
                              "shasta_tpu/ops/pallas/block_conv.py:117", "frame"),
@@ -507,9 +712,11 @@ def main() -> int:
            "gather_conv": ("shasta_tpu_torch/csrc/gather_conv.cu",
                            "shasta_tpu/ops/pallas/window_conv.py:480", "batched step")}
     for name, rec in per_kernel.items():
+        if name == "block_extract":
+            continue
         t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = (rec["ops"] / INT_OPS_PER_S if "ops" in rec
-                 else rec["flops"] / PEAK_FLOPS["bfloat16"]) * 1e3
+        t_ops = (rec["ops"] / PEAK_OPS_PER_S["int32"] if "ops" in rec
+                 else rec["flops"] / PEAK_OPS_PER_S["bfloat16"]) * 1e3
         unit = src[name][2]
         n_units = n_frames if unit == "frame" else n_steps
         kernels.append({
@@ -521,15 +728,32 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": rec.get("library_ms"),
-            "per": (f"one {unit}'s launches (sum over its calls)"
+            "per": (f"one {unit}'s launches (sum over its calls, each call's time the "
+                    f"median of 10 CUDA-event-timed calls)"
                     + (" at bf16" if "flops" in rec else "")
                     + ("; library: torch.searchsorted on the same flattened queries, "
                        "positions only (no perm gather, no hit test, one search per "
                        "triple centre)" if name == "sorted_lookup" else "")),
         })
+    rec = per_kernel["block_extract"]
+    kernels.append({
+        "name": "block_extract", "route": "cuda",
+        "source": "shasta_tpu_torch/csrc/block_extract.cu",
+        "replaces": "tools/probe_block_conv.py:43", "launches": launches["block_extract"],
+        "launches_per": "0 per serving frame; 10 per probe run",
+        "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound"], "bound_by": rec["by"], "library_ms": None,
+        "per": "one probe run: the sum over its 10 launches (s0, s1 x five variants), "
+               f"each the median of {PROBE_ITERS} CUDA-event-timed launches, f32; "
+               "library: none, no "
+               "PyTorch call computes the block extraction",
+        "cases": [{k: r[k] for k in ("shape", "variant", "hits", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "max_abs_err")}
+                  for r in probe_recs]})
     print(json.dumps({"frames_per_s": fps, "frames_per_s_runs": fps_runs,
                       "lanes4_frames_per_s": fps4, "lanes4_frames_per_s_runs": sps_runs,
-                      "card": smi, "host": host}))
+                      "classes7_frames_per_s": fps7, "classes7_frames_per_s_runs": fps7_runs,
+                      "classes7_peak_device_gib": peak_gb, "card": smi, "host": host}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

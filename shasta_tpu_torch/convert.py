@@ -10,6 +10,7 @@ the deconv tap flip (convert.py:70-75).
 
     load_jax_variables(model, variables_np)
     random_jax_variables(model, seed)  # a seeded random tree of that layout
+    class_models_from_jax(cfgs, trees, trunk_key)  # the multi-class step's models
 """
 from __future__ import annotations
 
@@ -189,3 +190,25 @@ def random_jax_variables(model: ShastaModel, seed: int = 0) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(to_jax(a.astype(np.float32)))
     return tree
+
+
+TRUNK_PARTS = ("backbone", "neck", "shared_conv")
+
+
+def class_models_from_jax(cfgs: dict, trees: dict, trunk_key: str = "car") -> dict:
+    """{name: ShastaModel} for MultiClassScenePipeline from one JAX variable
+    tree per class (numpy leaves), through `load_jax_variables`: each
+    class's affinity head from its own tree, the trunk (backbone, neck,
+    shared conv) from `trunk_key`'s tree for every class, as the released
+    per-class models share one frozen trunk. cfgs: {name: ShastaConfig}.
+    The models are built on the CPU: the pipeline stacks their heads and
+    copies one trunk to its card."""
+    trunk = trees[trunk_key]
+    models = {}
+    for name, cfg in cfgs.items():
+        tree = {col: dict(trees[name].get(col, {})) for col in ("params", "batch_stats")}
+        for col in tree:
+            tree[col].update({p: trunk[col][p] for p in TRUNK_PARTS if p in trunk.get(col, {})})
+        models[name] = ShastaModel(cfg, device="cpu")
+        load_jax_variables(models[name], tree)
+    return models

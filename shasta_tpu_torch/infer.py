@@ -1,7 +1,8 @@
-"""Single-class scene serving, one step per frame: the port of
-ScenePipeline.step_frame (shasta_tpu/infer.py:154-374) and of
-BatchedScenePipeline.step_frames (:377-600), which advances B scene lanes
-one frame each in one step.
+"""Scene serving, one step per frame: the port of ScenePipeline.step_frame
+(shasta_tpu/infer.py:154-374), of BatchedScenePipeline.step_frames
+(:377-600), which advances B scene lanes one frame each in one step, and of
+MultiClassScenePipeline (:603-907), which tracks up to 7 classes of one
+scene on one shared trunk.
 
   carry = (prev descriptors, prev boxes, track table, id counter), per lane
   step:  trunk (one frame per lane) -> BEV descriptors -> affinity vs
@@ -17,12 +18,18 @@ always 1.
 """
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .device import upload
-from .models.shasta import ShastaModel
+from .core.bilinear import sample_bev_features
+from .core.boxes import box_points_5
+from .device import resolve_device, upload
+from .models.affinity import AffinityNet
+from .models.shasta import ShastaModel, trunk_bev
+from .multiclass import stack_class_heads
 from .plans import attach_plans, frame_plans
 from .tracker import scan_tracker as st
 from .tracker.decision import apply_decision_rules
@@ -58,6 +65,8 @@ class StepOutput:
     access."""
 
     __slots__ = ("_packed", "_N", "_np", "_host", "_event")
+    # the port's kernels gather by index: no window can overflow
+    coverage_ok = coverage_ok_strict = True
 
     def __init__(self, packed: torch.Tensor, N: int):
         self._packed, self._N = packed, N
@@ -103,10 +112,13 @@ class StepOutput:
         return self._arr()[..., 4, : self._N] > 0.5
 
 
-def _dets_with_fn(boxes, prev_boxes, dec, cls_id: int) -> st.FrameDets:
+def _dets_with_fn(boxes, prev_boxes, dec, cls_id) -> st.FrameDets:
     """Tracker det rows of boxes (..., N, 11): kept curr dets [0, N), then
     FN-propagated prev boxes [N, 2N) moved forward by the prev frame's own
-    lag prev_boxes[..., 0, 9] (eval.py:141-148), refined with 1 - P(dead)."""
+    lag prev_boxes[..., 0, 9] (eval.py:141-148), refined with 1 - P(dead).
+    cls_id: an int, or an int32 tensor with one class per lane (...,)."""
+    if isinstance(cls_id, torch.Tensor):
+        cls_id = cls_id[..., None]
     fn_lag = prev_boxes[..., :1, 9:10]
     fn_ct = prev_boxes[..., :2] + fn_lag * prev_boxes[..., 7:9]
 
@@ -278,3 +290,189 @@ class BatchedScenePipeline:
         self._tables = tables
         self._id_counts = id_counts
         return StepOutput(packed, N)
+
+
+class _ClassStepOutput(StepOutput):
+    """One class's rows of a multi-class step's packed (C, 6, 2N_max)
+    output: curr rows [0, N_c) and FN rows [N_max, N_max + N_c) of its
+    slice (infer.py:875-907). The classes of one frame share one fetch."""
+
+    __slots__ = ("_whole", "_index", "_cols")
+
+    def __init__(self, whole: StepOutput, index: int, n_c: int, n_max: int):
+        self._whole, self._index, self._N = whole, index, n_c
+        self._cols = np.concatenate([np.arange(n_c), n_max + np.arange(n_c)])
+        self._np = None
+
+    def start_fetch(self) -> "_ClassStepOutput":
+        self._whole.start_fetch()
+        return self
+
+    def _arr(self) -> np.ndarray:
+        if self._np is None:
+            self._np = self._whole._arr()[self._index][:, self._cols]
+        return self._np
+
+
+class _SharedTrunk(torch.nn.Module):
+    """The trunk of one class model (backbone, neck, shared conv) on the
+    pipeline's device, without that model's affinity head: shared with the
+    model if it lies on that device, copied there otherwise."""
+
+    def __init__(self, model: ShastaModel, device: torch.device):
+        super().__init__()
+        self.cfg = model.cfg
+        for name in ("backbone", "neck", "shared_conv"):
+            m = getattr(model, name)
+            setattr(self, name, m if model.device == device else copy.deepcopy(m).to(device))
+
+    def bev_single(self, frame: dict) -> torch.Tensor:
+        return trunk_bev(self.cfg, self.backbone, self.neck, self.shared_conv, frame)
+
+
+class MultiClassScenePipeline:
+    """Shared-trunk multi-class serving of one scene, on one device.
+
+    The released per-class models share one frozen trunk, so the trunk runs
+    once per frame (at B=1 with host plans, as ScenePipeline); the class
+    heads, padded to the widest max_obj by the exact transform of
+    multiclass.py, run as one class-stacked head; decisions and tracker
+    steps take the classes as a leading lane axis. Each class tracks in its
+    own table of 2*N_max*(max_age+1) slots; a class absent from a frame
+    keeps its state from before the step. New ids are issued relative per
+    class and rebased in class-major order by the global count plus the
+    preceding classes' new tracks (the merged tracker's det-order numbering).
+
+    class_models: {name: ShastaModel} over NUSCENES_TRACKING_NAMES, sharing
+    the trunk geometry; they may lie on the CPU (convert.class_models_from_
+    jax builds them there): the pipeline stacks their heads and copies the
+    trunk of `trunk_key` to `device` (default "cuda")."""
+
+    def __init__(self, class_models: dict, trunk_key: str = "car",
+                 params: st.TrackerParams | None = None, fp_thresh: float = 0.7,
+                 decision_thresh: float = 0.5, device=None):
+        self.device = dev = resolve_device(device)
+        self._names = tuple(n for n in NUSCENES_TRACKING_NAMES if n in class_models)
+        cfgs = [class_models[n].cfg for n in self._names]
+        c0 = cfgs[0]
+        geom = ("pc_start", "voxel_size", "out_stride", "num_point", "share_conv_channel")
+        assert all(tuple(getattr(c, g) for g in geom) == tuple(getattr(c0, g) for g in geom)
+                   for c in cfgs), "class models must share the trunk geometry"
+        self.max_obj = {n: c.max_obj for n, c in zip(self._names, cfgs)}
+        self.n_max = N = max(self.max_obj.values())
+        self.params = params or default_tracker_params(device=dev)
+        self.fp_thresh, self.decision_thresh = fp_thresh, decision_thresh
+        self.trunk = _SharedTrunk(class_models[trunk_key], dev)
+        stacked, n_real = stack_class_heads(class_models, self._names, N)
+        with torch.device(dev):
+            self.head = AffinityNet(N, c0.num_feats, c0.num_point, c0.share_conv_channel,
+                                    classes=len(self._names))
+        self.head.load_state_dict(stacked)
+        self.head.eval().requires_grad_(False)
+        self._n_real = n_real.to(dev)
+        self._cls_ids = torch.tensor([NUSCENES_TRACKING_NAMES.index(n) for n in self._names],
+                                     dtype=torch.int32, device=dev)
+        self._F = c0.num_point * c0.share_conv_channel
+        self.cap = 2 * N * (self.params.max_age + 1)
+        self.reset()
+
+    def reset(self):
+        C, N, dev = len(self._names), self.n_max, self.device
+        self._prev_feat = torch.zeros((C, 1, N, self._F), device=dev)
+        self._prev_boxes = torch.zeros((C, 1, N, 11), device=dev)
+        self._n_prev = np.zeros((C,), np.float32)  # host-side, like n_curr
+        self._tables = st.TrackTable(*(t.expand((C,) + t.shape).clone()
+                                       for t in st.TrackTable.empty(self.cap, dev)))
+        self._id_count = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def dispatch_frame(self, frame: dict, class_boxes: dict, time_lag: float):
+        """Enqueue one frame's step; returns (the packed output of all
+        classes, the names present) without reading anything back. frame:
+        the B=1 voxel arrays, with plan_* arrays or without (then they are
+        built on the host); class_boxes: {name: (det boxes (1, N_c, 11),
+        n_curr)} as host arrays. The tracker state has advanced on return."""
+        cfg = self.trunk.cfg
+        if not any(k.startswith("plan_") for k in frame):
+            frame = attach_plans(frame, frame_plans(
+                np.asarray(torch.as_tensor(frame["coordinates"]).cpu())[0],
+                np.asarray(torch.as_tensor(frame["voxels_valid"]).cpu())[0], cfg))
+        dev, C, N = self.device, len(self._names), self.n_max
+        f = {k: torch.as_tensor(v, device=dev) for k, v in frame.items()
+             if k in FRAME_KEYS or k.startswith("plan_")}
+        boxes = np.zeros((C, N, 11), np.float32)
+        n_curr = np.zeros((C,), np.float32)
+        skip = np.ones((C,), np.float32)
+        for i, n in enumerate(self._names):
+            if n in class_boxes:
+                b, nc = class_boxes[n]
+                b = np.asarray(b, np.float32).reshape(-1, 11)
+                boxes[i, :b.shape[0]] = b
+                n_curr[i], skip[i] = nc, 0.0
+        # the boxes and per-class scalars in one host-to-device copy
+        buf = upload(np.concatenate([boxes.reshape(-1), self._n_prev, n_curr, skip,
+                                     [time_lag]]).astype(np.float32), dev)
+        boxes_st = buf[:C * N * 11].view(C, 1, N, 11)
+        sc = buf[C * N * 11:]
+        absent = sc[2 * C:3 * C] > 0.5
+        with torch.no_grad():
+            with record_function("step.trunk"):
+                bev = self.trunk.bev_single(f)
+                pts = box_points_5(boxes_st[:, 0, :, :7])  # (C, N, 5, 3)
+                curr_feat = sample_bev_features(
+                    bev, pts.reshape(1, C * N, *pts.shape[2:]), cfg.pc_start,
+                    cfg.voxel_size, cfg.out_stride).reshape(C, 1, N, -1).float()
+            with record_function("step.affinity"):
+                cb = boxes_st[:, 0]
+                m1, m2 = self.head(self._prev_boxes[:, 0, :, :7], cb[..., :7], cb[..., 7:9],
+                                   cb[..., 9:10], self._prev_feat[:, 0], curr_feat[:, 0],
+                                   n_real=self._n_real)
+            with record_function("step.decide_track"):
+                dec = apply_decision_rules(m1, m2, sc[:C].to(torch.int32),
+                                           sc[C:2 * C].to(torch.int32),
+                                           fp_thresh=self.fp_thresh,
+                                           decision_thresh=self.decision_thresh)
+                # retroactive dead flags: prev dets hold slots [0, N) of their
+                # class table (infer.py:737-742)
+                before = self._tables
+                dead_pad = torch.zeros_like(before.dead)
+                dead_pad[:, :N] = dec.dead
+                tables = before._replace(dead=before.dead | (dead_pad & before.used))
+                dets = _dets_with_fn(cb, self._prev_boxes[:, 0], dec, self._cls_ids)
+                tables, n_new, tid, used, ref, is_new = st.step_frames_core(
+                    tables, torch.zeros((C,), dtype=torch.int32, device=dev), dets,
+                    sc[3 * C].expand(C), self.params)
+                # an absent class keeps its pre-step, pre-dead-flag table
+                tables = st.TrackTable(*(
+                    torch.where(absent.reshape((C,) + (1,) * (new.dim() - 1)), old, new)
+                    for new, old in zip(tables, before)))
+                n_new = torch.where(absent, 0, n_new)
+                # class-major rebase of the relative new ids (infer.py:756-765)
+                base = (self._id_count + torch.cumsum(n_new, 0, dtype=torch.int32)
+                        - n_new)
+                renew = is_new & ~absent[:, None]
+                tid = torch.where(renew, tid + base[:, None], tid)
+                renew_slots = torch.zeros_like(tables.used)
+                renew_slots[:, :2 * N] = renew
+                tables = tables._replace(tid=torch.where(
+                    renew_slots, tables.tid + base[:, None], tables.tid))
+                id_count = self._id_count + n_new.sum().to(torch.int32)
+            packed = _packed(tid, used, ref, dec.keep, dec.fn)  # (C, 6, 2N)
+            keep_prev = absent[:, None, None, None]
+            self._prev_feat = torch.where(keep_prev, self._prev_feat, curr_feat)
+            self._prev_boxes = torch.where(keep_prev, self._prev_boxes, boxes_st)
+        self._n_prev = np.where(skip > 0.5, self._n_prev, n_curr)
+        self._tables = tables
+        self._id_count = id_count
+        return StepOutput(packed, N), tuple(n for n in self._names if n in class_boxes)
+
+    def step_frame(self, frame: dict, class_boxes: dict, time_lag: float) -> dict:
+        """One frame of all classes present: {name: StepOutput} with the
+        class's own 2*N_c rows (FN rows at [N_c, 2*N_c)). Nothing is read
+        back until a field is read; then one packed tensor for all classes."""
+        return self.unpack_frame(*self.dispatch_frame(frame, class_boxes, time_lag))
+
+    def unpack_frame(self, packed: StepOutput, names) -> dict:
+        """{name: StepOutput} over one dispatch_frame result, re-sliced to
+        each class's rows; no fetch until a field is read."""
+        return {n: _ClassStepOutput(packed, i, self.max_obj[n], self.n_max)
+                for i, n in enumerate(self._names) if n in names}

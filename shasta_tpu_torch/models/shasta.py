@@ -66,27 +66,8 @@ class ShastaModel(AffinityNet):
         self.requires_grad_(False)
 
     def bev_single(self, frame: dict) -> torch.Tensor:
-        """Shared-conv BEV map (B, H, W, 64), channels last, for ONE frame
-        of each of B scenes. frame: voxels (B, V, P, 5), num_points (B, V),
-        coordinates (B, V, 3) [z, y, x], voxels_valid (B, V), all tensors on
-        the model's device; optionally, at B=1, the plan_* arrays of
-        shasta_tpu_torch/plans.py. Row b*V + v carries batch index b."""
-        B, V = frame["voxels"].shape[:2]
-        c = self.cfg
-        plans = {k[5:]: v for k, v in frame.items() if k.startswith("plan_")}
-        assert B == 1 or not plans, "host plans serve the B=1 step"
-        feats = voxel_mean_vfe(frame["voxels"].reshape(B * V, *frame["voxels"].shape[2:]),
-                               frame["num_points"].reshape(B * V), c.num_input_features)
-        bidx = torch.arange(B, dtype=torch.int32, device=feats.device).repeat_interleave(V)
-        coords = torch.cat([bidx[:, None],
-                            frame["coordinates"].reshape(B * V, 3).to(torch.int32)], dim=1)
-        st = sp.SparseTensor(feats, coords, frame["voxels_valid"].reshape(B * V),
-                             tuple(c.grid_shape), B)
-        with record_function("step.sparse_trunk"):
-            bev = self.backbone(st, plans or None)
-        with record_function("step.neck"):
-            bev = self.shared_conv(self.neck(bev))
-        return bev.permute(0, 2, 3, 1)
+        """Shared-conv BEV map (B, H, W, 64) of `trunk_bev`."""
+        return trunk_bev(self.cfg, self.backbone, self.neck, self.shared_conv, frame)
 
     def frame_features(self, frame: dict) -> torch.Tensor:
         """Trunk + BEV descriptor sampling for ONE frame of each of B
@@ -102,3 +83,29 @@ class ShastaModel(AffinityNet):
             prev_boxes11[:, :, :7], curr_boxes11[:, :, :7],
             curr_boxes11[:, :, 7:9], curr_boxes11[:, :, 9:10],
             prev_feat.float(), curr_feat.float())
+
+
+def trunk_bev(cfg: ShastaConfig, backbone: SparseBackbone, neck: RPN,
+              shared_conv: SharedConv, frame: dict) -> torch.Tensor:
+    """Shared-conv BEV map (B, H, W, 64), channels last, for ONE frame of
+    each of B scenes, through the trunk's three modules (a ShastaModel's,
+    or the one trunk the multi-class step shares). frame: voxels (B, V, P,
+    5), num_points (B, V), coordinates (B, V, 3) [z, y, x], voxels_valid
+    (B, V), all tensors on the trunk's device; optionally, at B=1, the
+    plan_* arrays of shasta_tpu_torch/plans.py. Row b*V + v carries batch
+    index b."""
+    B, V = frame["voxels"].shape[:2]
+    plans = {k[5:]: v for k, v in frame.items() if k.startswith("plan_")}
+    assert B == 1 or not plans, "host plans serve the B=1 step"
+    feats = voxel_mean_vfe(frame["voxels"].reshape(B * V, *frame["voxels"].shape[2:]),
+                           frame["num_points"].reshape(B * V), cfg.num_input_features)
+    bidx = torch.arange(B, dtype=torch.int32, device=feats.device).repeat_interleave(V)
+    coords = torch.cat([bidx[:, None],
+                        frame["coordinates"].reshape(B * V, 3).to(torch.int32)], dim=1)
+    st = sp.SparseTensor(feats, coords, frame["voxels_valid"].reshape(B * V),
+                         tuple(cfg.grid_shape), B)
+    with record_function("step.sparse_trunk"):
+        bev = backbone(st, plans or None)
+    with record_function("step.neck"):
+        bev = shared_conv(neck(bev))
+    return bev.permute(0, 2, 3, 1)

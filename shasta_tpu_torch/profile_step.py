@@ -1,13 +1,15 @@
 """Where the time of one serving step goes, on the card.
 
-    python -m shasta_tpu_torch.profile_step [--frames 10] [--lanes 1]
+    python -m shasta_tpu_torch.profile_step [--frames 10] [--lanes 1] [--classes 0]
 
 Sets up the bench-scale car frame (`car_setup`, shared with chip_smoke.py:
 V=120k voxels per lane, max_obj 90, 60 real dets, caps 50k/25k/12k/12k
 per lane, bf16 trunk, random weights from a numpy seed), warms up, then
 profiles `--frames` steps with torch.profiler: ScenePipeline.step_frame
 with host plans at --lanes 1, BatchedScenePipeline.step_frames over
---lanes scene lanes otherwise (bench.py --lanes N). Prints, per step:
+--lanes scene lanes otherwise (bench.py --lanes N), and with --classes K
+the fused multi-class step (MultiClassScenePipeline, `multiclass_setup`)
+over the first K classes of NUSC_MAX_OBJ. Prints, per step:
 host wall time, device busy time and its share of the wall, the step's
 record_function spans (host time and the device time of their kernels'
 range), the kernels by device time, and the host-device synchronisations
@@ -24,37 +26,73 @@ import warnings
 import numpy as np
 import torch
 
-from .convert import load_jax_variables, random_jax_variables
+from .convert import class_models_from_jax, load_jax_variables, random_jax_variables
 from .data.synthetic import make_batch
 from .device import resolve_device
-from .infer import FRAME_KEYS, BatchedScenePipeline, ScenePipeline
+from .infer import FRAME_KEYS, BatchedScenePipeline, MultiClassScenePipeline, ScenePipeline
 from .models import ShastaConfig, ShastaModel
 from .plans import frame_plans
 
 CAR = dict(max_obj=90, cap_conv2=50000, cap_conv3=25000, cap_conv4=12000,
            cap_extra=12000)
 N_DETS = 60
+# per-class max_obj of configs/nusc/*.py (car.py:6, ped.py:6, ..., bus.py:6)
+NUSC_MAX_OBJ = {"car": 90, "pedestrian": 90, "truck": 60, "trailer": 60, "bus": 20,
+                "motorcycle": 50, "bicycle": 50}
 
 
-def car_setup(dev, dtype=torch.bfloat16, seed: int = 0, lanes: int = 1):
-    """(cfg, numpy batch, plans on dev or None, model, frame on dev) at the
-    bench shape of bench.py:39-41,75-97,121-148: at lanes == 1 one frame
-    with its host plans; at lanes > 1 the frames of seeds seed..seed+B-1
-    concatenated (B lanes, no plans) and the stage caps times B."""
-    cfg = ShastaConfig(**{k: v * (lanes if k.startswith("cap_") else 1)
-                          for k, v in CAR.items()}, dtype=dtype)
+def bench_frame(cfg, dev, seed: int = 0, lanes: int = 1):
+    """(numpy batch, plans on dev or None, frame on dev) at the bench shape
+    of bench.py:39-41,75-97,121-148: at lanes == 1 one frame with its host
+    plans; at lanes > 1 the frames of seeds seed..seed+B-1 concatenated (B
+    lanes, no plans)."""
     parts = [make_batch(cfg, num_voxels_cap=120000, n_dets=N_DETS, seed=seed + s)
              for s in range(lanes)]
     batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
-    model = ShastaModel(cfg, device=dev)
-    load_jax_variables(model, random_jax_variables(model, seed=seed))
     frame = {k: torch.as_tensor(batch[k]).to(dev) for k in FRAME_KEYS}
     plans = None
     if lanes == 1:
         plans = {k: torch.from_numpy(v).to(dev) for k, v in frame_plans(
             batch["coordinates"][0], batch["voxels_valid"][0], cfg).items()}
         frame.update({"plan_" + k: v for k, v in plans.items()})
+    return batch, plans, frame
+
+
+def car_setup(dev, dtype=torch.bfloat16, seed: int = 0, lanes: int = 1):
+    """(cfg, numpy batch, plans on dev or None, model, frame on dev): the
+    bench frame of `bench_frame` and the car model, the stage caps times
+    the lanes."""
+    cfg = ShastaConfig(**{k: v * (lanes if k.startswith("cap_") else 1)
+                          for k, v in CAR.items()}, dtype=dtype)
+    batch, plans, frame = bench_frame(cfg, dev, seed, lanes)
+    model = ShastaModel(cfg, device=dev)
+    load_jax_variables(model, random_jax_variables(model, seed=seed))
     return cfg, batch, plans, model, frame
+
+
+def multiclass_setup(dev, classes: int = 7):
+    """(pipeline, frame on dev with its host plans, class_boxes) of the fused
+    multi-class step at full width over the first `classes` entries of
+    NUSC_MAX_OBJ: the bf16 car trunk and frame of `car_setup` (seed 0), each
+    class's max_obj,
+    min(N_DETS, max_obj) real dets per class at rest (velocity 0: on a
+    repeated frame each det sits on its own track, so its id holds; with
+    the synthetic N(0, 1) velocities, dets a metre apart trade tracks),
+    random trees from numpy seeds 1.. through
+    class_models_from_jax (built on the host; car's trunk shared)."""
+    cfgs = {n: ShastaConfig(**dict(CAR, max_obj=m), dtype=torch.bfloat16)
+            for n, m in list(NUSC_MAX_OBJ.items())[:classes]}
+    _, _, frame = bench_frame(cfgs["car"], dev)
+    trees, class_boxes = {}, {}
+    for i, (n, cfg) in enumerate(cfgs.items()):
+        trees[n] = random_jax_variables(ShastaModel(cfg, device="cpu"), seed=1 + i)
+        n_dets = min(N_DETS, cfg.max_obj)
+        b = make_batch(cfg, num_voxels_cap=16, n_dets=n_dets, seed=1 + i)["det_boxes"]
+        b[..., 7:9] = 0.0
+        class_boxes[n] = (b, n_dets)
+    pipe = MultiClassScenePipeline(class_models_from_jax(cfgs, trees), trunk_key="car",
+                                   device=dev)
+    return pipe, frame, class_boxes
 
 
 def step_fn(model, frame, lanes: int):
@@ -94,12 +132,20 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--lanes", type=int, default=1)
+    ap.add_argument("--classes", type=int, default=0,
+                    help="profile the fused multi-class step over this many classes")
     args = ap.parse_args()
     from torch.profiler import ProfilerActivity, profile
 
     dev = resolve_device("cuda")
-    _, _, _, model, frame = car_setup(dev, lanes=args.lanes)
-    step = step_fn(model, frame, args.lanes)
+    if args.classes:
+        pipe, frame, class_boxes = multiclass_setup(dev, args.classes)
+
+        def step():
+            return pipe.dispatch_frame(frame, class_boxes, 0.5)[0]
+    else:
+        _, _, _, model, frame = car_setup(dev, lanes=args.lanes)
+        step = step_fn(model, frame, args.lanes)
     for _ in range(3):
         step().tid
     torch.cuda.synchronize()

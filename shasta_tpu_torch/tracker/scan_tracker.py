@@ -99,6 +99,19 @@ def step_frames(table: TrackTable, id_count: torch.Tensor, dets: FrameDets,
     infer.py:407-421, written out as a leading lane axis): table fields
     (B, CAP, ...), id_count (B,) int32, det fields (B, N, ...), time_lag
     (B,). Returns (new_table, id_count, det_tid, det_used, det_refsc)."""
+    new_table, n_new, tid, used, ref, _ = step_frames_core(table, id_count, dets,
+                                                           time_lag, params)
+    return new_table, id_count + n_new, tid, used, ref
+
+
+def step_frames_core(table: TrackTable, id_count: torch.Tensor, dets: FrameDets,
+                     time_lag: torch.Tensor, params: TrackerParams):
+    """`step_frames` internals (scan_tracker.py:95-200 of the JAX package,
+    step_frame_core, with a lane axis): returns (new_table, n_new (B,),
+    det_tid, det_used, det_refsc, is_new (B, N)). With id_count 0 the new
+    ids are relative (1 + rank within the lane's frame); the fused
+    multi-class step rebases them by the global count plus the preceding
+    classes' n_new."""
     B, N = dets.ct.shape[:2]
     CAP = table.ct.shape[1]
 
@@ -181,4 +194,4 @@ def step_frames(table: TrackTable, id_count: torch.Tensor, dets: FrameDets,
         dead=build(det_used & dets.dead, table.dead),
         used=build(det_used, survive),
     )
-    return new_table, id_count + n_new, det_tid, det_used, det_refsc
+    return new_table, n_new, det_tid, det_used, det_refsc, is_new

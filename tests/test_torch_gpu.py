@@ -70,3 +70,30 @@ def test_scene_batched_kernels_match_plain_versions_on_the_card():
             rows = torch.randint(-1, V + 1, (M, K), generator=g, dtype=torch.int32).to(dev)
             torch.testing.assert_close(gather_conv(f, rows, w), gather_conv_plain(f, rows, w),
                                        atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_block_extract_matches_its_plain_version_on_the_card():
+    """block_extract in all five variants against its plain version on the
+    card, f32 (TF32 off) at atol/rtol 1e-5, on inputs whose rows hit (both
+    probe geometries at V=8192) and whose windows overlap (chip_smoke.py
+    phase 8 runs the probe's full shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from shasta_tpu_torch.ops.kernels.block_extract import (VARIANTS, block_extract,
+                                                            block_extract_plain)
+    from shasta_tpu_torch.probe_block_conv import probe_inputs
+
+    dev = resolve_device("cuda")
+    for (C, H, NBWL), recipe in (((16, 4, 128), "hit"), ((32, 2, 256), "hit"),
+                                 ((16, 4, 128), "dup")):
+        args = {k: torch.from_numpy(v).to(dev)
+                for k, v in probe_inputs(8192, C, H, NBWL, 128, 0, recipe).items()}
+        for variant in VARIANTS:
+            kw = dict(H=H, C=C, tile=128, variant=variant)
+            want = block_extract_plain(**args, **kw)
+            # overlapping windows sum two blocks' keys: eq, so noselect and
+            # full, are then zero
+            assert recipe == "dup" or want.abs().sum() > 0, variant
+            torch.testing.assert_close(block_extract(**args, **kw), want, atol=1e-5,
+                                       rtol=1e-5)

@@ -62,8 +62,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, shasta_tpu_torch, shasta_tpu_torch.infer, "
             "shasta_tpu_torch.convert, shasta_tpu_torch.ops.kernels.build, "
             "shasta_tpu_torch.ops.kernels.lookup, shasta_tpu_torch.ops.kernels.gather_conv, "
-            "shasta_tpu_torch.profile_step\n"
-            "from shasta_tpu_torch.infer import BatchedScenePipeline\n"
+            "shasta_tpu_torch.profile_step, shasta_tpu_torch.probe_block_conv, "
+            "shasta_tpu_torch.multiclass, shasta_tpu_torch.ops.kernels.block_extract\n"
+            "from shasta_tpu_torch.infer import BatchedScenePipeline, MultiClassScenePipeline\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'shasta_tpu')]\n"
             "assert not bad, bad")

@@ -16,7 +16,11 @@ Phases (any failure ends the run with a non-zero exit code):
   3b. the same for sorted_lookup (all three modes, integer equality) and
      gather_conv at the 4-lane batched step's shapes: the index tables are
      the ones the port builds for the 4-lane frame (480k voxels, caps
-     200k/100k/48k/48k); torch.searchsorted is timed beside sorted_lookup;
+     200k/100k/48k/48k); torch.searchsorted is timed beside sorted_lookup,
+     with the share of its tasks that search in shared memory, and
+     per mode; per conv group, gather_conv's hits per row, a second bf16
+     run that must give the same bits, and beside it rulebook_conv on the
+     same table (the CUDA-core core gather_conv ran before its redesign);
   4. drive ScenePipeline.step_frame at the full car width (V=120k,
      max_obj 90, 60 real dets, cls_id 2, max_age 4, bf16 trunk, random
      weights from a numpy seed loaded through load_jax_variables): warm-up,
@@ -213,12 +217,44 @@ def batched_calls(model, frame):
     return calls["sorted_lookup"], calls["gather_conv"]
 
 
+def staged_share(keys, q, mode):
+    """(staged, tasks): of csrc/lookup.cu's tasks (64 consecutive rows of one
+    query column) with a live probe, those whose largest probe's lower bound
+    lies among the STAGE keys from the smallest probe's lower bound, so each
+    lane searches in shared memory, not in the global table."""
+    import torch
+
+    from shasta_tpu_torch.ops.kernels.lookup import SENTINEL
+
+    rows, stage = 64, 128  # csrc/lookup.cu TASK_ROWS, STAGE
+    M, G = q.shape
+    c = torch.cat([q.long(), q.new_full(((-M) % rows, G), SENTINEL).long()])
+    live = c != SENTINEL
+    lo, hi = c, c
+    if mode == "triple":
+        lo, hi = (c - 1).clamp(min=-2**31), (c + 1).clamp(max=SENTINEL - 1)
+    mn = torch.where(live, lo, SENTINEL).reshape(-1, rows, G).amin(1)
+    mx = torch.where(live, hi, -2**31).reshape(-1, rows, G).amax(1)
+    k = keys.long()
+    p_lo, p_hi = torch.searchsorted(k, mn), torch.searchsorted(k, mx)
+    covered = (p_lo + stage >= k.shape[0]) | (p_hi < p_lo + stage)
+    tasks = live.reshape(-1, rows, G).any(1)
+    return int((tasks & covered).sum()), int(tasks.sum())
+
+
+CONV_GROUPS = ("conv_input", "res0", "down1", "res1", "down2", "res2", "down3", "res3",
+               "extra")
+
+
 def phase_batched_kernels(model, frame):
     """Phase 3b: sorted_lookup and gather_conv against their plain versions
     at the 4-lane step's shapes, and their times (per step: the sum over
-    the step's calls)."""
+    the step's calls). Beside gather_conv, rulebook_conv on the same gather
+    table: the same function on the CUDA-core core gather_conv.cuh, which
+    gather_conv ran before its tensor-core redesign."""
     import torch
 
+    from shasta_tpu_torch.ops.kernels import block_conv as bc
     from shasta_tpu_torch.ops.kernels import gather_conv as gc
     from shasta_tpu_torch.ops.kernels import lookup as lk
     from shasta_tpu_torch.timing import median_ms
@@ -229,8 +265,9 @@ def phase_batched_kernels(model, frame):
     recs = {"sorted_lookup": dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
                                   ops=0.0, err=0.0),
             "gather_conv": dict(ms=0.0, plain_ms=0.0, library_ms=None, bytes=0.0,
-                                flops=0.0, err=0.0)}
+                                flops=0.0, err=0.0, cuda_core_ms=0.0)}
     rec = recs["sorted_lookup"]
+    by_mode = collections.defaultdict(lambda: [0.0, 0.0])
     for keys, perm, q, mode in lookups:
         got, want = lk.sorted_lookup(keys, perm, q, mode), lk.sorted_lookup_plain(keys, perm, q, mode)
         torch.cuda.synchronize()
@@ -240,46 +277,54 @@ def phase_batched_kernels(model, frame):
         flat = q.reshape(-1)
         lib_ms = median_ms(lambda: torch.searchsorted(keys, flat, side="left"))
         V, (M, G), D = keys.shape[0], q.shape, (3 if mode == "triple" else 1)
+        staged, tasks = staged_share(keys, q, mode)
         rec["ms"] += ms
         rec["plain_ms"] += plain_ms
         rec["library_ms"] += lib_ms
         rec["bytes"] += 4 * (M * G + M * G * D + V * (1 if perm is None else 2))
         rec["ops"] += M * G * D * max(1, V.bit_length())  # one compare per probe
+        by_mode[mode][0] += ms
+        by_mode[mode][1] += lib_ms
         print(f"  sorted_lookup  {mode:8s} V={V:8d} M={M:7d}x{G}  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  searchsorted {lib_ms:.4f} ms")
+              f"plain {plain_ms:.4f} ms  searchsorted {lib_ms:.4f} ms  staged tasks "
+              f"{staged}/{tasks}")
+    print("  sorted_lookup per mode (kernel / searchsorted ms): " + ", ".join(
+        f"{m} {a:.4f} / {b:.4f}" for m, (a, b) in by_mode.items()))
 
     g = torch.Generator(device="cpu").manual_seed(1)
     rec = recs["gather_conv"]
-    seen = collections.Counter(
-        (f.shape, idx.data_ptr(), w.shape) for f, idx, w in convs)
-    done = set()
+    groups = {}  # convs sharing input width, gather table and weight shape
     for f_path, idx, w_path in convs:
-        key = (f_path.shape, idx.data_ptr(), w_path.shape)
-        if key in done:
-            continue
-        done.add(key)
-        n = seen[key]
-        (V, cin), (M, K), co = f_path.shape, idx.shape, w_path.shape[2]
-        f32 = torch.randn(V, cin, generator=g).to(f_path.device)
-        w32 = (torch.randn(K, cin, co, generator=g) / (K * cin) ** 0.5).to(f_path.device)
+        groups.setdefault((f_path.shape, idx.data_ptr(), w_path.shape), []).append(idx)
+    check(len(groups) == len(CONV_GROUPS), f"{len(groups)} conv groups in the 4-lane trunk")
+    for group, ((f_shape, _, w_shape), calls) in zip(CONV_GROUPS, groups.items()):
+        idx, n = calls[0], len(calls)
+        (V, cin), (M, K), co = f_shape, idx.shape, w_shape[2]
+        f32 = torch.randn(V, cin, generator=g).to(idx.device)
+        w32 = (torch.randn(K, cin, co, generator=g) / (K * cin) ** 0.5).to(idx.device)
         for dt, atol, rtol in ((torch.float32, 1e-4, 0.0), (torch.bfloat16, 2e-2, 2e-2)):
             f, w = f32.to(dt), w32.to(dt)
             got, want = gc.gather_conv(f, idx, w), gc.gather_conv_plain(f, idx, w)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             bad = float(((got - want).abs() - rtol * want.abs()).max())
-            check(bad <= atol, f"gather_conv {cin}->{co} M={M} {dt}: max abs err {err}")
+            check(bad <= atol, f"gather_conv {group} {cin}->{co} M={M} {dt}: max abs err {err}")
             rec["err"] = max(rec["err"], err)
-        f, w = f32.to(torch.bfloat16), w32.to(torch.bfloat16)
+        # f, w are bf16 here: a second run gives the same bits (no atomics)
+        check(torch.equal(gc.gather_conv(f, idx, w), got),
+              f"gather_conv {group}: two bf16 runs differ")
         ms = median_ms(lambda: gc.gather_conv(f, idx, w))
+        core_ms = median_ms(lambda: bc.rulebook_conv(f, idx, w))
         plain_ms = median_ms(lambda: gc.gather_conv_plain(f, idx, w))
         hits = int(((idx >= 0) & (idx < V)).sum())
         rec["ms"] += n * ms
+        rec["cuda_core_ms"] += n * core_ms
         rec["plain_ms"] += n * plain_ms
         rec["bytes"] += n * (V * cin * 2 + M * K * 4 + K * cin * co * 2 + M * co * 4)
         rec["flops"] += n * 2.0 * hits * cin * co
-        print(f"  gather_conv    {cin:3d}->{co:3d} K={K:2d} x{n}  V={V:7d} M={M:7d} "
-              f"hits={hits:9d}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  (bf16)")
+        print(f"  gather_conv    {group:10s} {cin:3d}->{co:3d} K={K:2d} x{n}  V={V:7d} "
+              f"M={M:7d} hits={hits:9d} ({hits / M:.3f}/row)  kernel {ms:.4f} ms  "
+              f"CUDA-core core {core_ms:.4f} ms  plain {plain_ms:.4f} ms  (bf16)")
     return recs
 
 
@@ -728,9 +773,13 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": rec.get("library_ms"),
+            **({"cuda_core_ms": rec["cuda_core_ms"]} if "cuda_core_ms" in rec else {}),
             "per": (f"one {unit}'s launches (sum over its calls, each call's time the "
                     f"median of 10 CUDA-event-timed calls)"
                     + (" at bf16" if "flops" in rec else "")
+                    + ("; cuda_core_ms: rulebook_conv on the same gather tables, the "
+                       "CUDA-core core gather_conv.cuh that gather_conv ran before its "
+                       "redesign" if "cuda_core_ms" in rec else "")
                     + ("; library: torch.searchsorted on the same flattened queries, "
                        "positions only (no perm gather, no hit test, one search per "
                        "triple centre)" if name == "sorted_lookup" else "")),

@@ -13,17 +13,22 @@
 // the global layout.
 //
 // Path: the scene-batched step's 21 convs (ops/sparse.py NeighborIndex,
-// models/backbone.py without plans). Bound: see gather_conv.cuh. Per conv
-// the kernel reads the gather table (M*K*4 bytes), the gathered rows (the
-// V x Cin table is at most 480k x 16 x 2 bytes at 4 lanes, L2-resident)
-// and W, and writes M*Co*4 bytes; 2*hits*Cin*Co FLOPs put the C_in <= 32
-// convs on the bytes side of the H100's roofline and the C_in >= 64 convs
-// there too below ~7 hits per row.
+// models/backbone.py without plans). Per conv the kernel reads the gather
+// table (M*K*4 bytes), the gathered rows (the V x Cin table is at most
+// 480k x 16 x 2 bytes at 4 lanes, L2-resident) and W, and writes M*Co*4
+// bytes; 2*hits*Cin*Co FLOPs at 0.9-13 hits per row put every conv of the
+// step on the bytes side of the H100's roofline.
+//
+// bf16 inputs (the serving trunk's type) run the tensor-core cores of
+// gather_mma.cuh (its note says which conv takes which and why). f32
+// inputs run the CUDA-core core gather_conv.cuh, kept for parity checks at
+// f32. The choice is by dtype; either launch that fails is reported.
 #include "gather_conv.cuh"
+#include "gather_mma.cuh"
 
 namespace {
 
-// The gather table as it is; the core maps a row >= V or < 0 to a miss.
+// The gather table as it is; the cores map a row >= V or < 0 to a miss.
 struct GatherFind {
   const int* __restrict__ gather;
   int K;
@@ -40,6 +45,8 @@ gather_conv_kernel(const T* __restrict__ feats, const int* __restrict__ gather,
   gconv::gather_gemm_tile<T, CO>(feats, w, out, V, M, K, Cin, GatherFind{gather, K});
 }
 
+// f32 only: gconv::dispatch also instantiates the bf16 case, which the
+// launch below sends to gather_mma.cuh instead.
 template <typename T, int CO>
 struct Launch {
   static void run(dim3 grid, cudaStream_t stream, const void* feats,
@@ -59,6 +66,7 @@ extern "C" int gather_conv_launch(const void* feats, const int* gather,
                                   int K, int Cin, int Co, int bf16,
                                   void* stream) {
   if (K < 1 || K > gconv::KMAX || Cin < 1) return (int)cudaErrorInvalidValue;
-  return gconv::dispatch<Launch>(Co, bf16, M, static_cast<cudaStream_t>(stream),
-                                 feats, gather, w, out, V, M, K, Cin);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) return gmma::launch(GatherFind{gather, K}, feats, w, out, V, M, K, Cin, Co, s);
+  return gconv::dispatch<Launch>(Co, 0, M, s, feats, gather, w, out, V, M, K, Cin);
 }

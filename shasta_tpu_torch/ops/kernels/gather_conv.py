@@ -9,12 +9,16 @@ The gather table is the JAX NeighborIndex as it is: a row >= V (the JAX
 miss) or < 0 adds nothing. K is 27 or 3 (the extra conv); feats and
 weight share one dtype, f32 or bf16; the sum is f32.
 
-The CUDA kernel (csrc/gather_conv.cu, core in csrc/gather_conv.cuh, shared
-with rulebook_conv and keyed_conv) gathers rows by index from L2 into
-shared memory and accumulates in f32 registers: one launch for all lanes,
-no windows and no coverage check. What bounds it on the H100: bytes (the
-gather table M*K*4, the output M*Co*4, the table and W) against
-2*hits*Cin*Co FLOPs; the scene-batched step's convs sit on the bytes side.
+The CUDA kernel (csrc/gather_conv.cu) takes one launch for all lanes, with
+no windows and no coverage check. bf16 inputs run the tensor-core cores of
+csrc/gather_mma.cuh (mma.sync m16n8k16, f32 sums, no atomics): where all of
+W fits shared memory, each warp walks its 16 rows' hit taps alone with the
+sums in registers; the wider convs compact each tap's hit rows per
+128-row tile, gather only those (cp.async) and sum into a shared tile.
+f32 inputs run the CUDA-core core csrc/gather_conv.cuh (shared with
+rulebook_conv and keyed_conv). What bounds it on the H100: bytes (the gather table M*K*4, the
+output M*Co*4, the table and W) against 2*hits*Cin*Co FLOPs; the
+scene-batched step's convs sit on the bytes side.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises.

@@ -17,10 +17,14 @@ Modes:
 - "identity": perm is None and the result is the table position itself
   (the strided compaction over a cumsum table, ops/sparse.py:410-425).
 
-The CUDA kernel (csrc/lookup.cu) runs one thread per (row, column) with a
-left binary search over the whole L2-resident table, three searches in
-triple mode. What bounds it on the H100: bytes, the queries read, the
-results written and the table read once.
+The CUDA kernel (csrc/lookup.cu) gives each warp 64 consecutive rows of
+one query column: a 32-ary warp search finds the lower bound of their
+smallest probe, the 128 keys from there are staged in shared memory, and
+each lane finishes its searches there when the largest probe's bound lies
+among them (else in the L2-resident table between the two bounds); triple
+mode searches once per centre, for c-1, and advances to c and c+1. What
+bounds it on the H100: bytes, the queries read, the results written and
+the table read once.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises.
@@ -67,7 +71,7 @@ def _launch_fn():
     from .build import library
 
     fn = library("lookup").sorted_lookup_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                              ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -105,7 +109,7 @@ def sorted_lookup(sorted_keys: torch.Tensor, perm: torch.Tensor | None,
         return out
     stream = torch.cuda.current_stream(queries.device).cuda_stream
     err = _launch_fn()(_ptr(sorted_keys), _ptr(perm), _ptr(queries), _ptr(out),
-                       sorted_keys.shape[0], M * G, int(D == 3),
+                       sorted_keys.shape[0], M, G, int(D == 3),
                        ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sorted_lookup launch failed: CUDA error {err}")

@@ -44,7 +44,12 @@ def test_kernels_match_plain_versions_on_the_card():
 def test_scene_batched_kernels_match_plain_versions_on_the_card():
     """sorted_lookup in its three modes (exact) and gather_conv, f32 (TF32
     off) at 1e-4 and bf16 at 2e-2, against their plain versions on the
-    card (chip_smoke.py phase 3b runs them at the 4-lane step's shapes)."""
+    card (chip_smoke.py phase 3b runs them at the 4-lane step's shapes).
+    Lookups: queries in key order (a warp finds its probes among the keys
+    it staged in shared memory) and shuffled (it searches the global
+    table), over a table with a filler run and the int32 edges. Convs: the sparse hit patterns the
+    tensor-core kernel compacts, M not a multiple of its tile; a second
+    bf16 run gives the same bits (no atomics in the sum)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from shasta_tpu_torch.ops.kernels.gather_conv import gather_conv, gather_conv_plain
@@ -55,21 +60,44 @@ def test_scene_batched_kernels_match_plain_versions_on_the_card():
     V, M = 3000, 2000
     keys = torch.sort(torch.randint(0, 2 * V, (V,), generator=g, dtype=torch.int32))[0]
     keys[-200:] = 2 * V  # a run of equal filler keys
+    keys[:2] = torch.tensor([-2**31, -2**31 + 1], dtype=torch.int32)
+    keys[-3:] = torch.tensor([2**31 - 2, 2**31 - 1, 2**31 - 1], dtype=torch.int32)
     perm = torch.randperm(V, generator=g).to(torch.int32)
     q = torch.randint(-2, 2 * V + 2, (M, 9), generator=g, dtype=torch.int32)
     q[::7] = 2**31 - 1
-    for mode, p in (("plain", perm), ("triple", perm), ("identity", None)):
-        args = (keys, p, q, mode)
-        want = sorted_lookup_plain(*args)
-        got = sorted_lookup(*(a.to(dev) if torch.is_tensor(a) else a for a in args))
-        assert torch.equal(got.cpu(), want), mode
-    for cin, co, K in ((5, 16, 27), (16, 32, 27), (64, 128, 27), (128, 128, 3)):
-        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            f = torch.randn(V, cin, generator=g).to(dev, dt)
-            w = (torch.randn(K, cin, co, generator=g) * 0.1).to(dev, dt)
-            rows = torch.randint(-1, V + 1, (M, K), generator=g, dtype=torch.int32).to(dev)
-            torch.testing.assert_close(gather_conv(f, rows, w), gather_conv_plain(f, rows, w),
-                                       atol=tol, rtol=tol)
+    q[1::97] = 2 * V - 1  # c + 1 is the filler key
+    q[3, :3] = torch.tensor([-2**31, -2**31 + 1, 2**31 - 2], dtype=torch.int32)
+    ascending = torch.sort(q, dim=0)[0]
+    for order, qq in (("ascending", ascending), ("shuffled", q)):
+        for mode, p in (("plain", perm), ("triple", perm), ("identity", None)):
+            args = (keys, p, qq, mode)
+            want = sorted_lookup_plain(*args)
+            got = sorted_lookup(*(a.to(dev) if torch.is_tensor(a) else a for a in args))
+            assert torch.equal(got.cpu(), want), (order, mode)
+    M = 1999
+    for cin, co, K in ((5, 16, 27), (16, 32, 27), (64, 128, 27), (128, 128, 27),
+                       (128, 128, 3)):
+        for pattern in ("centre_only", "three_per_row", "all_taps"):
+            rows = torch.randint(0, V, (M, K), generator=g, dtype=torch.int32)
+            if pattern == "centre_only":
+                keep = torch.zeros((M, K), dtype=torch.bool)
+                keep[:, K // 2] = True
+            else:
+                keep = torch.rand((M, K), generator=g) < (3.0 / K if pattern ==
+                                                         "three_per_row" else 2.0)
+            miss = torch.where(torch.rand((M, K), generator=g) < 0.5, V, -1).to(torch.int32)
+            rows = torch.where(keep, rows, miss)
+            rows[128:256] = V  # one 128-row tile and two 64-row tiles with no hit
+            rows = rows.to(dev)
+            for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+                f = torch.randn(V, cin, generator=g).to(dev, dt)
+                w = (torch.randn(K, cin, co, generator=g) * 0.1).to(dev, dt)
+                got = gather_conv(f, rows, w)
+                torch.testing.assert_close(got, gather_conv_plain(f, rows, w), atol=tol,
+                                           rtol=tol)
+                assert got[128:256].abs().max() == 0
+                if dt == torch.bfloat16:
+                    assert torch.equal(gather_conv(f, rows, w), got), (cin, co, K, pattern)
 
 
 @pytest.mark.gpu

@@ -175,3 +175,116 @@ def test_gather_conv_wrapper_on_cpu_equals_plain_and_checks_arguments(rng, dtype
         gather_conv(feats, g.long(), w)
     with pytest.raises(ValueError):
         gather_conv(feats, g[:, :3], w)
+
+
+INT_MIN, INT_MAX = -2**31, 2**31 - 1
+
+
+def _shortcut_case(rng, case):
+    """(keys, perm, centres (M, 3)) aimed at one shortcut of csrc/lookup.cu:
+    a duplicate run that starts at c-1 or at c (the triple's first search
+    lands on a run and c, c+1 advance over it), a frame's filler run right
+    after its last cell (c+1 of that cell is the filler key, ~V/lanes long),
+    or probes at the int32 edges (c-1 or c+1 outside int32, or SENTINEL)."""
+    if case == "int32_edges":
+        keys = np.array([INT_MIN, INT_MIN, INT_MIN + 1, -5, 0, 7, INT_MAX - 2, INT_MAX - 1,
+                         INT_MAX - 1, INT_MAX], np.int64)
+        cent = np.array([INT_MIN, INT_MIN + 1, INT_MIN + 2, -4, 1, 6, INT_MAX - 3,
+                         INT_MAX - 2, INT_MAX - 1, INT_MAX], np.int64)
+    elif case == "filler_after_last_cell":
+        cells, lanes = 5000, 3  # frame b owns keys b*(cells+1) .. b*(cells+1)+cells
+        parts = []
+        for b in range(lanes):
+            real = np.sort(rng.choice(cells - 1, size=300, replace=False))
+            parts += [b * (cells + 1) + real, [b * (cells + 1) + cells - 1],  # the last cell
+                      np.full(200, b * (cells + 1) + cells)]  # the filler run
+        keys = np.sort(np.concatenate(parts))
+        last = np.arange(lanes) * (cells + 1) + cells - 1
+        cent = np.concatenate([np.repeat(last, 20), keys[rng.integers(0, keys.size, 240)]])
+    else:
+        x = 1000
+        base = rng.choice(np.setdiff1d(np.arange(3000), [x - 1, x, x + 1]), size=400,
+                          replace=False)
+        keys = np.sort(np.concatenate([base, np.full(60, x)]))
+        near = [x + 1, x + 2] if case == "dup_at_c_minus_1" else [x, x - 1]
+        cent = np.concatenate([np.repeat(near, 40), keys[rng.integers(0, keys.size, 160)]
+                               + rng.integers(-1, 2, 160)])
+    cent = np.stack([np.sort(rng.permutation(cent)) for _ in range(3)], 1)
+    return (keys.astype(np.int32), rng.permutation(keys.size).astype(np.int32),
+            cent.astype(np.int32))
+
+
+def _triple_probes(c):
+    """(M, 3G) probes c-1, c, c+1 in (g, dx) order as the JAX XLA path builds
+    them, computed in int64: a SENTINEL centre or a probe outside int32
+    becomes SENTINEL."""
+    c = c.astype(np.int64)
+    q = np.stack([c - 1, c, c + 1], axis=-1)
+    bad = (c == SENTINEL)[..., None] | (q >= SENTINEL) | (q < INT_MIN)
+    return np.where(bad, SENTINEL, q).astype(np.int32).reshape(c.shape[0], -1)
+
+
+@pytest.mark.parametrize("order", ["ascending", "shuffled"])
+@pytest.mark.parametrize("case", ["dup_at_c_minus_1", "dup_at_c", "filler_after_last_cell",
+                                  "int32_edges"])
+def test_plain_lookup_on_the_kernels_shortcuts_matches_xla_lookup(rng, case, order):
+    """All three modes on the inputs the kernel's shortcuts target, in key
+    order (the kernel finds a task's probes among the keys it staged) and
+    shuffled (it searches the global table), against `_xla_lookup`; the
+    ascending triple also against `windowed_lookup_triple` away from the
+    int32 edges."""
+    keys, perm, cent = _shortcut_case(rng, case)
+    if order == "shuffled":
+        cent = cent[rng.permutation(cent.shape[0])]
+    V, jk, jp = keys.shape[0], jnp.asarray(keys), jnp.asarray(perm)
+    got = sorted_lookup(_t(keys), _t(perm), _t(cent), "triple").numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(_xla_lookup(jk, jp, jnp.asarray(_triple_probes(cent)))))
+    if order == "ascending" and case != "int32_edges":
+        np.testing.assert_array_equal(
+            got, np.asarray(windowed_lookup_triple(jk, jp, jnp.asarray(cent))))
+    got1 = sorted_lookup(_t(keys), _t(perm), _t(cent), "plain").numpy()
+    np.testing.assert_array_equal(got1, np.asarray(_xla_lookup(jk, jp, jnp.asarray(cent))))
+    got_id = sorted_lookup(_t(keys), None, _t(cent), "identity").numpy()
+    np.testing.assert_array_equal(got_id, np.asarray(_xla_lookup(
+        jk, jnp.arange(V, dtype=jnp.int32), jnp.asarray(cent))))
+    # the run's first occurrence answers every probe of it
+    first = {int(k): int(np.searchsorted(keys, k)) for k in np.unique(keys)}
+    for probe, r in zip(_triple_probes(cent).reshape(-1), got.reshape(-1)):
+        want = first.get(int(probe), V) if probe != SENTINEL else V
+        assert r == (perm[want] if want < V else V)
+
+
+def _conv_table(rng, pattern, V, M, K):
+    """(M, K) gather rows with the hit pattern of a sparse stage: only the
+    centre tap hits (stage 0 of a synthetic frame), about 3 hits per row,
+    or every tap; misses are V or -1; rows 128-255 all miss (a 128-row and
+    two 64-row tiles with no hit)."""
+    g = rng.integers(0, V, size=(M, K))
+    if pattern == "centre_only":
+        keep = np.zeros((M, K), bool)
+        keep[:, K // 2] = True
+    elif pattern == "three_per_row":
+        keep = rng.random((M, K)) < 3.0 / K
+    else:
+        keep = np.ones((M, K), bool)
+    g = np.where(keep, g, np.where(rng.random((M, K)) < 0.5, V, -1))
+    g[128:256] = V
+    return g.astype(np.int32)
+
+
+@pytest.mark.parametrize("C,Co,K", [(5, 16, 27), (128, 128, 3)])
+@pytest.mark.parametrize("pattern", ["centre_only", "three_per_row", "all_taps"])
+def test_gather_conv_plain_on_sparse_hit_tables_matches_xla(rng, pattern, C, Co, K):
+    """The hit patterns the tensor-core kernel compacts, M = 333 (not a
+    multiple of its 64- or 128-row tiles), against `_gathered_matmul` (XLA)
+    at f32 atol 1e-4."""
+    V, M = 500, 333
+    feats = rng.normal(size=(V, C)).astype(np.float32)
+    w = (rng.normal(size=(K, C, Co)) / np.sqrt(K * C)).astype(np.float32)
+    g = _conv_table(rng, pattern, V, M, K)
+    got = gather_conv(_t(feats), _t(g), _t(w)).numpy()
+    assert np.abs(got[128:256]).max() == 0 and np.abs(got[256:]).max() > 0
+    xla = np.asarray(sp._gathered_matmul(jnp.asarray(feats), jnp.asarray(np.where(g < 0, V, g)),
+                                         jnp.asarray(w), None, use_pallas=False))
+    np.testing.assert_allclose(got, xla, atol=1e-4)

@@ -10,17 +10,18 @@ Phases (any failure ends the run with a non-zero exit code):
   3. hold rulebook_conv and keyed_conv against their plain PyTorch
      versions on the card at the B=1 step's shapes (bench-scale frame:
      120k voxels, stage caps 50k/25k/12k/12k), f32 with TF32 off at atol
-     1e-4 and bf16 at atol/rtol 2e-2, and time both (every kernel time in
-     this script is shasta_tpu_torch.timing.median_ms: the median of calls each
-     between two CUDA events);
+     1e-4 and bf16 at atol/rtol 2e-2, check that a second bf16 run gives
+     the same bits, and time both (every kernel time in this script is
+     shasta_tpu_torch.timing.median_ms: the median of calls each between
+     two CUDA events); per conv, its hits per row and the tensor-core core
+     its bf16 launch takes (warp or staged);
   3b. the same for sorted_lookup (all three modes, integer equality) and
      gather_conv at the 4-lane batched step's shapes: the index tables are
      the ones the port builds for the 4-lane frame (480k voxels, caps
      200k/100k/48k/48k); torch.searchsorted is timed beside sorted_lookup,
      with the share of its tasks that search in shared memory, and
-     per mode; per conv group, gather_conv's hits per row, a second bf16
-     run that must give the same bits, and beside it rulebook_conv on the
-     same table (the CUDA-core core gather_conv ran before its redesign);
+     per mode; per conv group, gather_conv's hits per row, its core and a
+     second bf16 run that must give the same bits;
   4. drive ScenePipeline.step_frame at the full car width (V=120k,
      max_obj 90, 60 real dets, cls_id 2, max_age 4, bf16 trunk, random
      weights from a numpy seed loaded through load_jax_variables): warm-up,
@@ -87,60 +88,15 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def conv_cases(cfg, frame, plans, dev):
-    """The main path's 21 convs as (kernel, case, launches per frame, args
-    builder): inputs at the shapes a bench frame gives each kernel."""
-    import torch
-
-    from shasta_tpu_torch.ops import sparse as sp
-
-    V = frame["coordinates"].shape[1]
-    coords0 = torch.cat([torch.zeros((V, 1), dtype=torch.int32),
-                         torch.from_numpy(frame["coordinates"][0])], 1).to(dev)
-    st0 = sp.SparseTensor(None, coords0, torch.from_numpy(frame["voxels_valid"][0]).to(dev),
-                          tuple(cfg.grid_shape), 1)
-    down = ((3, 3, 3), (2, 2, 2), (1, 1, 1))
-
-    def out_set(st, key, geom):
-        c, v, shape = sp.decode_strided_keys(plans[key], st.shape, *geom, 1)
-        return sp.SparseTensor(None, c, v, shape, 1)
-
-    def rows(st):
-        return st.coords.shape[0]
-
-    st1 = out_set(st0, "d1_keys", down)
-    st2 = out_set(st1, "d2_keys", down)
-    g3 = ((3, 3, 3), (2, 2, 2), (0, 1, 1))
-    gex = ((3, 1, 1), (2, 1, 1), (0, 0, 0))
-    st3 = out_set(st2, "d3_keys", g3)
-    stx = out_set(st3, "ex_keys", gex)
-
-    def keyed(st_in, st_out=None, geom=None):
-        skeys, perm = sp.key_table(st_in)
-        q = (sp.subm_queries(st_in) if st_out is None else
-             sp.strided_queries(st_out.coords, st_out.valid, st_in.shape, *geom))
-        return (skeys, perm, q)
-
-    rb = lambda key: (plans[key],)  # noqa: E731
-    return [
-        ("rulebook_conv", "conv_input 5->16", 1, V, 5, 16, rb("s0_rb")),
-        ("rulebook_conv", "res0 16->16", 4, V, 16, 16, rb("s0_rb")),
-        ("rulebook_conv", "down1 16->32", 1, V, 16, 32, rb("d1_rb")),
-        ("rulebook_conv", "res1 32->32", 4, rows(st1), 32, 32, rb("d1s_rb")),
-        ("rulebook_conv", "down2 32->64", 1, rows(st1), 32, 64, rb("d2_rb")),
-        ("keyed_conv", "res2 64->64", 4, rows(st2), 64, 64, keyed(st2)),
-        ("keyed_conv", "down3 64->128", 1, rows(st2), 64, 128, keyed(st2, st3, g3)),
-        ("keyed_conv", "res3 128->128", 4, rows(st3), 128, 128, keyed(st3)),
-        ("keyed_conv", "extra 128->128 K=3", 1, rows(st3), 128, 128,
-         keyed(st3, stx, gex)),
-    ]
-
-
 def phase_kernels(cfg, frame, plans, dev):
-    """Phase 3: each kernel against its plain version, and their times."""
+    """Phase 3: each kernel against its plain version, a second bf16 run
+    against the first (the same bits), and their times; per conv the hits
+    per row and the tensor-core core the bf16 launch takes."""
     import torch
 
     from shasta_tpu_torch.ops.kernels import block_conv, window_conv
+    from shasta_tpu_torch.ops.kernels.gather_conv import mma_core
+    from shasta_tpu_torch.profile_step import b1_conv_cases
     from shasta_tpu_torch.timing import median_ms
 
     # each as fn(index tensors, feats, weight)
@@ -151,7 +107,7 @@ def phase_kernels(cfg, frame, plans, dev):
     g = torch.Generator(device="cpu").manual_seed(0)
     per_kernel = collections.defaultdict(lambda: dict(ms=0.0, plain_ms=0.0, bytes=0.0,
                                                       flops=0.0, err=0.0))
-    for name, case, n, V, cin, co, idx in conv_cases(cfg, frame, plans, dev):
+    for name, case, n, V, cin, co, idx in b1_conv_cases(cfg, frame, plans, dev):
         kern, plain = fns[name]
         K = idx[-1].shape[1]
         M = idx[-1].shape[0]
@@ -171,8 +127,9 @@ def phase_kernels(cfg, frame, plans, dev):
                   f"rtol {rtol})")
             rec = per_kernel[name]
             rec["err"] = max(rec["err"], err)
-        # main path dtype: bf16
-        f, w = f32.to(torch.bfloat16), w32.to(torch.bfloat16)
+        # main path dtype: bf16 (f, w are bf16 here); no atomics, so a
+        # second run gives the same bits
+        check(torch.equal(kern(idx, f, w), got), f"{name} {case}: two bf16 runs differ")
         ms = median_ms(lambda: kern(idx, f, w))
         plain_ms = median_ms(lambda: plain(idx, f, w))
         isz = 2
@@ -184,8 +141,9 @@ def phase_kernels(cfg, frame, plans, dev):
         rec["plain_ms"] += n * plain_ms
         rec["bytes"] += n * nbytes
         rec["flops"] += n * 2.0 * hits * cin * co
-        print(f"  {name:14s} {case:20s} x{n}  M={M:6d} hits={hits:8d}  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  (bf16)")
+        print(f"  {name:14s} {case:20s} x{n}  M={M:6d} hits={hits:8d} ({hits / M:.3f}/row)  "
+              f"core {mma_core(K, cin, co)}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"(bf16)")
     return per_kernel
 
 
@@ -249,12 +207,9 @@ CONV_GROUPS = ("conv_input", "res0", "down1", "res1", "down2", "res2", "down3", 
 def phase_batched_kernels(model, frame):
     """Phase 3b: sorted_lookup and gather_conv against their plain versions
     at the 4-lane step's shapes, and their times (per step: the sum over
-    the step's calls). Beside gather_conv, rulebook_conv on the same gather
-    table: the same function on the CUDA-core core gather_conv.cuh, which
-    gather_conv ran before its tensor-core redesign."""
+    the step's calls)."""
     import torch
 
-    from shasta_tpu_torch.ops.kernels import block_conv as bc
     from shasta_tpu_torch.ops.kernels import gather_conv as gc
     from shasta_tpu_torch.ops.kernels import lookup as lk
     from shasta_tpu_torch.timing import median_ms
@@ -265,7 +220,7 @@ def phase_batched_kernels(model, frame):
     recs = {"sorted_lookup": dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
                                   ops=0.0, err=0.0),
             "gather_conv": dict(ms=0.0, plain_ms=0.0, library_ms=None, bytes=0.0,
-                                flops=0.0, err=0.0, cuda_core_ms=0.0)}
+                                flops=0.0, err=0.0)}
     rec = recs["sorted_lookup"]
     by_mode = collections.defaultdict(lambda: [0.0, 0.0])
     for keys, perm, q, mode in lookups:
@@ -314,17 +269,15 @@ def phase_batched_kernels(model, frame):
         check(torch.equal(gc.gather_conv(f, idx, w), got),
               f"gather_conv {group}: two bf16 runs differ")
         ms = median_ms(lambda: gc.gather_conv(f, idx, w))
-        core_ms = median_ms(lambda: bc.rulebook_conv(f, idx, w))
         plain_ms = median_ms(lambda: gc.gather_conv_plain(f, idx, w))
         hits = int(((idx >= 0) & (idx < V)).sum())
         rec["ms"] += n * ms
-        rec["cuda_core_ms"] += n * core_ms
         rec["plain_ms"] += n * plain_ms
         rec["bytes"] += n * (V * cin * 2 + M * K * 4 + K * cin * co * 2 + M * co * 4)
         rec["flops"] += n * 2.0 * hits * cin * co
         print(f"  gather_conv    {group:10s} {cin:3d}->{co:3d} K={K:2d} x{n}  V={V:7d} "
-              f"M={M:7d} hits={hits:9d} ({hits / M:.3f}/row)  kernel {ms:.4f} ms  "
-              f"CUDA-core core {core_ms:.4f} ms  plain {plain_ms:.4f} ms  (bf16)")
+              f"M={M:7d} hits={hits:9d} ({hits / M:.3f}/row)  core {gc.mma_core(K, cin, co)}  "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  (bf16)")
     return recs
 
 
@@ -773,13 +726,9 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": rec.get("library_ms"),
-            **({"cuda_core_ms": rec["cuda_core_ms"]} if "cuda_core_ms" in rec else {}),
             "per": (f"one {unit}'s launches (sum over its calls, each call's time the "
                     f"median of 10 CUDA-event-timed calls)"
                     + (" at bf16" if "flops" in rec else "")
-                    + ("; cuda_core_ms: rulebook_conv on the same gather tables, the "
-                       "CUDA-core core gather_conv.cuh that gather_conv ran before its "
-                       "redesign" if "cuda_core_ms" in rec else "")
                     + ("; library: torch.searchsorted on the same flattened queries, "
                        "positions only (no perm gather, no hit test, one search per "
                        "triple centre)" if name == "sorted_lookup" else "")),

@@ -9,15 +9,26 @@
 // the kernel needs no windows, no window-fit check and no fallback.
 //
 // Main path: the 11 convs with C_in <= 32 (conv_input 5->16, res0 16->16,
-// down1 16->32, res1 32->32, down2 32->64; M = 120k / 50k / 25k rows).
-// Bound: see gather_conv.cuh. Per conv the kernel reads the rulebook
-// (M*K*4 bytes), the gathered rows (from L2: the V x Cin table is at most
-// 120k x 16 x 2 bytes) and W, and writes M*Co*4 bytes; at Cin*Co <= 2048
-// these convs sit near the memory side of the H100's roofline.
+// down1 16->32, res1 32->32, down2 32->64; M = 120k / 50k / 25k rows at
+// 0.9-4.7 hits per row). Per conv the kernel reads the rulebook (M*K*4
+// bytes: 13 MB at stage 0, most of the bytes), the gathered rows (from
+// L2: the V x Cin table is at most 120k x 16 x 2 bytes) and W, and writes
+// M*Co*4 bytes; at Cin*Co <= 2048 the bytes bound these convs.
+//
+// bf16 runs the tensor-core warp core of gather_mma.cuh (all of W, 20.7 to
+// 124.4 KB, once per block in shared memory; each warp reads its 16 rows'
+// 16 x K rulebook entries in one coalesced load, walks their hit taps with
+// A fragments loaded straight from L2 into registers). A rulebook row
+// outside [0, V) is a miss, the contract of gather_conv's table, so the
+// finder reads it as it is. f32 runs the CUDA-core core gather_conv.cuh,
+// kept for parity checks. The choice is by dtype; either launch that fails
+// is reported.
 #include "gather_conv.cuh"
+#include "gather_mma.cuh"
 
 namespace {
 
+// The rulebook as it is; the cores map a row outside [0, V) to a miss.
 struct RulebookFind {
   const int* __restrict__ nbr;
   int K;
@@ -26,21 +37,21 @@ struct RulebookFind {
   }
 };
 
-template <typename T, int CO>
+template <int CO>
 __global__ void __launch_bounds__(gconv::THREADS)
-rulebook_conv_kernel(const T* __restrict__ feats, const int* __restrict__ nbr,
-                     const T* __restrict__ w, float* __restrict__ out, int V,
+rulebook_conv_kernel(const float* __restrict__ feats, const int* __restrict__ nbr,
+                     const float* __restrict__ w, float* __restrict__ out, int V,
                      int M, int K, int Cin) {
-  gconv::gather_gemm_tile<T, CO>(feats, w, out, V, M, K, Cin, RulebookFind{nbr, K});
+  gconv::gather_gemm_tile<CO>(feats, w, out, V, M, K, Cin, RulebookFind{nbr, K});
 }
 
-template <typename T, int CO>
+template <int CO>
 struct Launch {
   static void run(dim3 grid, cudaStream_t stream, const void* feats,
                   const int* nbr, const void* w, float* out, int V, int M,
                   int K, int Cin) {
-    rulebook_conv_kernel<T, CO><<<grid, gconv::THREADS, 0, stream>>>(
-        static_cast<const T*>(feats), nbr, static_cast<const T*>(w), out, V, M,
+    rulebook_conv_kernel<CO><<<grid, gconv::THREADS, 0, stream>>>(
+        static_cast<const float*>(feats), nbr, static_cast<const float*>(w), out, V, M,
         K, Cin);
   }
 };
@@ -53,6 +64,7 @@ extern "C" int rulebook_conv_launch(const void* feats, const int* nbr,
                                     int K, int Cin, int Co, int bf16,
                                     void* stream) {
   if (K < 1 || K > gconv::KMAX || Cin < 1) return (int)cudaErrorInvalidValue;
-  return gconv::dispatch<Launch>(Co, bf16, M, static_cast<cudaStream_t>(stream),
-                                 feats, nbr, w, out, V, M, K, Cin);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) return gmma::launch(RulebookFind{nbr, K}, feats, w, out, V, M, K, Cin, Co, s);
+  return gconv::dispatch<Launch>(Co, M, s, feats, nbr, w, out, V, M, K, Cin);
 }

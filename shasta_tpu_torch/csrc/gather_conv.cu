@@ -20,9 +20,10 @@
 // step on the bytes side of the H100's roofline.
 //
 // bf16 inputs (the serving trunk's type) run the tensor-core cores of
-// gather_mma.cuh (its note says which conv takes which and why). f32
-// inputs run the CUDA-core core gather_conv.cuh, kept for parity checks at
-// f32. The choice is by dtype; either launch that fails is reported.
+// gather_mma.cuh: the warp core for conv_input through down2 and the extra
+// conv, the staged core for res2, down3 and res3. f32 inputs run the
+// CUDA-core core gather_conv.cuh, kept for parity checks at f32. The choice
+// is by dtype; either launch that fails is reported.
 #include "gather_conv.cuh"
 #include "gather_mma.cuh"
 
@@ -37,23 +38,21 @@ struct GatherFind {
   }
 };
 
-template <typename T, int CO>
+template <int CO>
 __global__ void __launch_bounds__(gconv::THREADS)
-gather_conv_kernel(const T* __restrict__ feats, const int* __restrict__ gather,
-                   const T* __restrict__ w, float* __restrict__ out, int V,
+gather_conv_kernel(const float* __restrict__ feats, const int* __restrict__ gather,
+                   const float* __restrict__ w, float* __restrict__ out, int V,
                    int M, int K, int Cin) {
-  gconv::gather_gemm_tile<T, CO>(feats, w, out, V, M, K, Cin, GatherFind{gather, K});
+  gconv::gather_gemm_tile<CO>(feats, w, out, V, M, K, Cin, GatherFind{gather, K});
 }
 
-// f32 only: gconv::dispatch also instantiates the bf16 case, which the
-// launch below sends to gather_mma.cuh instead.
-template <typename T, int CO>
+template <int CO>
 struct Launch {
   static void run(dim3 grid, cudaStream_t stream, const void* feats,
                   const int* gather, const void* w, float* out, int V, int M,
                   int K, int Cin) {
-    gather_conv_kernel<T, CO><<<grid, gconv::THREADS, 0, stream>>>(
-        static_cast<const T*>(feats), gather, static_cast<const T*>(w), out, V,
+    gather_conv_kernel<CO><<<grid, gconv::THREADS, 0, stream>>>(
+        static_cast<const float*>(feats), gather, static_cast<const float*>(w), out, V,
         M, K, Cin);
   }
 };
@@ -68,5 +67,10 @@ extern "C" int gather_conv_launch(const void* feats, const int* gather,
   if (K < 1 || K > gconv::KMAX || Cin < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) return gmma::launch(GatherFind{gather, K}, feats, w, out, V, M, K, Cin, Co, s);
-  return gconv::dispatch<Launch>(Co, 0, M, s, feats, gather, w, out, V, M, K, Cin);
+  return gconv::dispatch<Launch>(Co, M, s, feats, gather, w, out, V, M, K, Cin);
 }
+
+// The bf16 core a conv of these shapes takes (gmma::Core: 0 the warp core,
+// 1 the staged core); the same in every kernel library, which all launch
+// through gather_mma.cuh.
+extern "C" int gather_mma_core(int K, int Cin, int Co) { return gmma::core_of(K, Cin, Co); }

@@ -1,4 +1,5 @@
-// Gather-GEMM core shared by the two sparse-conv kernels.
+// The f32 gather-GEMM core of the three sparse-conv kernels (their f32
+// parity route; bf16 takes the tensor-core cores of gather_mma.cuh).
 //
 //   out[m, :] = sum_k feats[n(m, k), :] @ W_k      (a miss contributes 0)
 //
@@ -6,19 +7,13 @@
 // rows into shared memory (a Finder maps (m, k) to an input row or -1),
 // then, for each tap that has at least one hit in the tile, stages the
 // gathered rows and W_k in shared memory, KC input channels at a time, and
-// accumulates the out tile in f32 registers: each thread owns RM rows x 4
-// output columns. Inputs are f32 or bf16 (converted to f32 on the way into
-// shared memory); accumulation is f32 on the CUDA cores.
-//
-// Bound on the H100: with bf16 inputs at the main-path widths the work is
-// 2*hits*Cin*Co FLOPs against ~hits*Cin*2 gathered bytes; the input tables
-// (V x Cin, at most 120k x 16 or 25k x 64 rows, a few MB) and the weights
-// stay resident in the 50 MB L2, so the gather reads come from L2, not HBM.
-// This first version is limited by its CUDA-core FMAs and shared-memory
-// traffic, far from the tensor-core bound; wgmma/TMA come later.
+// accumulates the out tile in f32 registers on the CUDA cores: each thread
+// owns RM rows x 4 output columns. It does 64*Cin*Co FMAs for every tap
+// with a hit in the tile, whether each row hits or not: simple and exact
+// in f32, and far from the card's bound, which is why bf16 does not run
+// here.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,12 +24,9 @@ constexpr int KC = 32;        // input channels per shared-memory chunk
 constexpr int KMAX = 27;      // taps of a 3x3x3 kernel
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T, int CO, typename Finder>
-__device__ __forceinline__ void gather_gemm_tile(const T* __restrict__ feats,
-                                                 const T* __restrict__ w,
+template <int CO, typename Finder>
+__device__ __forceinline__ void gather_gemm_tile(const float* __restrict__ feats,
+                                                 const float* __restrict__ w,
                                                  float* __restrict__ out,
                                                  int V, int M, int K, int Cin,
                                                  const Finder& find) {
@@ -81,11 +73,11 @@ __device__ __forceinline__ void gather_gemm_tile(const T* __restrict__ feats,
       for (int e = tid; e < TM * kc; e += THREADS) {
         const int r = e / kc, c = e - r * kc;
         const int row = nk[r];
-        a_s[r][c] = row >= 0 ? to_f32(feats[(size_t)row * Cin + c0 + c]) : 0.f;
+        a_s[r][c] = row >= 0 ? feats[(size_t)row * Cin + c0 + c] : 0.f;
       }
-      const T* wk = w + ((size_t)k * Cin + c0) * CO;
+      const float* wk = w + ((size_t)k * Cin + c0) * CO;
       for (int e = tid; e < kc * CO; e += THREADS) {
-        w_s[e / CO][e % CO] = to_f32(wk[e]);
+        w_s[e / CO][e % CO] = wk[e];
       }
       __syncthreads();
       for (int c = 0; c < kc; ++c) {
@@ -113,16 +105,15 @@ __device__ __forceinline__ void gather_gemm_tile(const T* __restrict__ feats,
   }
 }
 
-// Host-side dispatch over the output width and the input type. `Launch`
-// is a functor template instantiated as Launch<T, CO>::run(grid, stream).
-template <template <typename, int> class Launch, typename... Args>
-int dispatch(int Co, int bf16, int M, cudaStream_t stream, Args... args) {
+// Host-side dispatch over the output width. `Launch` is a functor template
+// instantiated as Launch<CO>::run(grid, stream, args...).
+template <template <int> class Launch, typename... Args>
+int dispatch(int Co, int M, cudaStream_t stream, Args... args) {
   if (M <= 0) return 0;
   const dim3 grid((M + TM - 1) / TM);
-#define GCONV_CASE(CO_)                                                       \
-  case CO_:                                                                   \
-    if (bf16) Launch<__nv_bfloat16, CO_>::run(grid, stream, args...);          \
-    else Launch<float, CO_>::run(grid, stream, args...);                       \
+#define GCONV_CASE(CO_)                         \
+  case CO_:                                     \
+    Launch<CO_>::run(grid, stream, args...);    \
     break;
   switch (Co) {
     GCONV_CASE(16)

@@ -1,24 +1,33 @@
-// Tensor-core gather-GEMM core for bf16 sparse convs (f32 sum).
+// Tensor-core gather-GEMM cores: the bf16 route of all three sparse-conv
+// kernels (gather_conv, rulebook_conv, keyed_conv), f32 sums. Their f32
+// route is the CUDA-core core gather_conv.cuh.
 //
 //   out[m, :] = sum_k feats[n(m, k), :] @ W_k      (a miss contributes 0)
 //
-// Bound on the H100: at the scene-batched step's densities (0.9 hits per
-// row of 27 taps at stage 0, 2.5-13 deeper down) a conv does
-// 2*hits*Cin*Co FLOPs against the gather table (M*K*4 bytes) and the f32
-// output (M*Co*4): bytes, far below the bf16 tensor-core rate. The
-// CUDA-core core (gather_conv.cuh) instead did 64*Cin*Co FMAs in f32 for
-// every tap with any hit in a 64-row tile, whether each row hit or not:
-// ~27x the useful work, plus bf16 widened to f32 in shared memory.
+// Bound on the H100: at the step's densities (0.9 hits per row of 27 taps
+// at stage 0, 1-13 deeper down) a conv does 2*hits*Cin*Co FLOPs against
+// the neighbour table or queries (M*K*4 bytes) and the f32 output
+// (M*Co*4): bytes, far below the bf16 tensor-core rate. The CUDA-core core
+// instead does 64*Cin*Co FMAs in f32 for every tap with any hit in a
+// 64-row tile, whether each row hits or not: ~27x the useful work, plus
+// bf16 widened to f32 in shared memory.
 //
-// Two cores, both output-stationary, chosen by the launch from the shapes:
-// where all K weight slices fit WC_W_BYTES_MAX of shared memory, the warp
-// core (its note is below, with the code); else the staged core, for the
-// wide convs (64 -> 64 and up at 27 taps), whose per-tap W slices must
-// stream through shared memory.
+// Finders. A Finder maps (m, k) to an input row through operator(); a row
+// outside [0, V) is a miss (gather_conv's table, rulebook_conv's rulebook,
+// keyed_conv's per-query search). A Finder that declares
+// `static constexpr bool kResolvesTile = true` resolves a staged tile's
+// whole neighbour table at once instead (keyed_conv: one staged search per
+// dx triple, window_conv.cu), with the ring buffers, idle then, as its
+// scratch.
+//
+// Two cores, chosen by `core_of` from the shapes alone: where all K weight
+// slices fit WC_W_BYTES_MAX of shared memory, the warp core (its note is
+// below, with the code); else the staged core, for the wide convs (64 ->
+// 64 and up at 27 taps), whose per-tap W slices must stream through shared
+// memory.
 //
 // The staged core, per block of TM output rows:
-// - Resolve the TM x K neighbour rows (a Finder maps (m, k) to an input row;
-//   a row outside [0, V) is a miss) into shared memory, then compact each
+// - Resolve the TM x K neighbour rows into shared memory, then compact each
 //   tap's hit rows in place with ballot / popc prefix sums: tap k has cnt[k]
 //   hits, their input rows and their local output rows. Taps without a hit
 //   are skipped.
@@ -45,15 +54,21 @@
 //   appears once and each column belongs to one warp, so every element has
 //   one writer: no atomics, and the taps' order is fixed, so results are
 //   identical from run to run. The tile goes to `out` once, coalesced.
+//
+// Each kernel instantiation raises its shared-memory limit once, to the
+// most any shape can ask of it (the step launches ~2,100 kernels a frame
+// from a host-bound loop; one card per process).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace gmma {
 
-constexpr int TM = 128;       // output rows per block
+constexpr int TM = 128;       // output rows per staged block
 constexpr int NBUF = 2;       // stages in shared memory: one loading, one multiplying
 constexpr int KC = 128;       // input channels per stage
 constexpr int KMAX = 27;      // taps of a 3x3x3 kernel
@@ -71,24 +86,42 @@ using bf16 = __nv_bfloat16;
 // room for more blocks per SM.
 __host__ __device__ constexpr int rows_per_stage(int co) { return co >= 64 ? TM : TM / 2; }
 
-// Dynamic shared memory, carved the same way on the host and the device.
+// Dynamic shared memory of a staged block, carved the same way on the host
+// and the device.
 struct Layout {
   int co, kcp, K;  // output width; channels per stage, padded to 16; taps
-  __host__ __device__ Layout(int co_, int cin, int K_)
+  __host__ __device__ constexpr Layout(int co_, int cin, int K_)
       : co(co_), kcp(((cin < KC ? cin : KC) + 15) / 16 * 16), K(K_) {}
-  __host__ __device__ int acc_ld() const { return co + PAD_F32; }
-  __host__ __device__ int w_ld() const { return co + PAD_BF16; }
-  __host__ __device__ int a_ld() const { return kcp + PAD_BF16; }
-  __host__ __device__ size_t acc_bytes() const { return (size_t)TM * acc_ld() * 4; }
-  __host__ __device__ size_t w_bytes() const { return (size_t)kcp * w_ld() * 2; }
-  __host__ __device__ size_t a_bytes() const { return (size_t)rows_per_stage(co) * a_ld() * 2; }
-  __host__ __device__ size_t rows_bytes() const { return ((size_t)K * ROWS_LD * 4 + 15) / 16 * 16; }
-  __host__ __device__ size_t loc_bytes() const { return ((size_t)K * TM + 15) / 16 * 16; }
-  __host__ __device__ size_t bytes() const {
-    return acc_bytes() + NBUF * (w_bytes() + a_bytes()) + rows_bytes() + loc_bytes() +
-           (2 * KMAX + 4) * 4;
+  __host__ __device__ constexpr int acc_ld() const { return co + PAD_F32; }
+  __host__ __device__ constexpr int w_ld() const { return co + PAD_BF16; }
+  __host__ __device__ constexpr int a_ld() const { return kcp + PAD_BF16; }
+  __host__ __device__ constexpr size_t acc_bytes() const { return (size_t)TM * acc_ld() * 4; }
+  __host__ __device__ constexpr size_t w_bytes() const { return (size_t)kcp * w_ld() * 2; }
+  __host__ __device__ constexpr size_t a_bytes() const {
+    return (size_t)rows_per_stage(co) * a_ld() * 2;
+  }
+  // the W and row rings, one after the other: a tile resolver's scratch
+  __host__ __device__ constexpr size_t ring_bytes() const { return NBUF * (w_bytes() + a_bytes()); }
+  __host__ __device__ constexpr size_t rows_bytes() const {
+    return ((size_t)K * ROWS_LD * 4 + 15) / 16 * 16;
+  }
+  __host__ __device__ constexpr size_t loc_bytes() const { return ((size_t)K * TM + 15) / 16 * 16; }
+  __host__ __device__ constexpr size_t bytes() const {
+    return acc_bytes() + ring_bytes() + rows_bytes() + loc_bytes() + (2 * KMAX + 4) * 4;
   }
 };
+
+// Whether a Finder resolves whole staged tiles (see the note at the top):
+//   find.resolve_tile(m0, M, rows, scratch)
+// runs on all THREADS threads of the block and leaves rows[k * ROWS_LD + r],
+// for r < TM, holding output row m0 + r's input row for tap k (in [0, V),
+// or -1 for a miss and for m0 + r >= M); scratch is Finder::kScratchBytes
+// of shared memory it may use.
+template <typename F, typename = void>
+struct resolves_tile : std::false_type {};
+template <typename F>
+struct resolves_tile<F, std::void_t<decltype(F::kResolvesTile)>>
+    : std::bool_constant<F::kResolvesTile> {};
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -161,13 +194,18 @@ __device__ __forceinline__ void gather_mma_tile(const bf16* __restrict__ feats,
   const int m0 = blockIdx.x * TM;
   const int acc_ld = L.acc_ld(), w_ld = L.w_ld(), a_ld = L.a_ld();
 
-  // 1. resolve the tile's neighbour rows (row-major walk: coalesced reads)
-  for (int e = tid; e < TM * K; e += THREADS) {
-    const int r = e / K, k = e - r * K;
-    const int m = m0 + r;
-    int row = m < M ? find(m, k) : -1;
-    if (row >= V || row < 0) row = -1;
-    rows[k * ROWS_LD + r] = row;
+  // 1. resolve the tile's neighbour rows: the finder's own resolver, or one
+  // find per entry (row-major walk: coalesced reads)
+  if constexpr (resolves_tile<Finder>::value) {
+    find.resolve_tile(m0, M, rows, reinterpret_cast<int*>(wring));
+  } else {
+    for (int e = tid; e < TM * K; e += THREADS) {
+      const int r = e / K, k = e - r * K;
+      const int m = m0 + r;
+      int row = m < M ? find(m, k) : -1;
+      if (row >= V || row < 0) row = -1;
+      rows[k * ROWS_LD + r] = row;
+    }
   }
   for (int e = tid; e < TM * acc_ld / 4; e += THREADS) {
     reinterpret_cast<float4*>(acc)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -348,8 +386,9 @@ __device__ __forceinline__ void gather_mma_tile(const bf16* __restrict__ feats,
 }
 
 // The warp core, for convs whose K weight slices all fit in shared memory
-// (the scene-batched step's convs up to 32 -> 64, and the extra conv's 3
-// taps). There a tap has a few hits per tile, and a stage of the core above
+// (every conv up to 32 -> 64 at 27 taps, 20.7 to 124.4 KB of W, and the
+// extra conv's 3 taps of 128 -> 128, 104 KB). There a tap has a few hits
+// per tile, and a stage of the core above
 // is a handful of rows behind a barrier and a load's latency, 27 times per
 // block. Here the block loads all of W once, and then each warp owns 16
 // output rows and walks their hit taps alone, with no barrier:
@@ -487,28 +526,42 @@ gather_mma_kernel(const bf16* __restrict__ feats, const bf16* __restrict__ w,
   gather_mma_tile<CO, VEC>(feats, w, out, V, M, K, Cin, find);
 }
 
-// The warp core where all of W fits its budget, else the staged core.
+enum Core : int { WARP = 0, STAGED = 1 };
+
+// The core a conv of these shapes takes: the warp core where all of W fits
+// its budget, else the staged core.
+inline int core_of(int K, int Cin, int Co) {
+  return warp_core_w_bytes(K, Cin, Co) <= WC_W_BYTES_MAX ? WARP : STAGED;
+}
+
+// static: each kernel library keeps its own copy of run's function-local
+// statics. With external linkage, one instantiation in two libraries of a
+// process would share them (a unique symbol), and the second library's
+// kernel would never get its shared-memory limit raised.
 template <int CO, bool VEC, typename Finder>
-int run(const Finder& find, const void* feats, const void* w, float* out, int V, int M,
+static int run(const Finder& find, const void* feats, const void* w, float* out, int V, int M,
         int K, int Cin, cudaStream_t stream) {
   const bf16* f = static_cast<const bf16*>(feats);
   const bf16* wt = static_cast<const bf16*>(w);
-  if (warp_core_w_bytes(K, Cin, CO) <= WC_W_BYTES_MAX) {
-    const size_t wc_bytes = warp_core_bytes(K, Cin, CO);
+  if (core_of(K, Cin, CO) == WARP) {
     auto kernel = gather_mma_warp_kernel<CO, VEC, Finder>;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wc_bytes);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<(M + WC_ROWS - 1) / WC_ROWS, WC_THREADS, wc_bytes, stream>>>(f, wt, out, V, M, K,
-                                                                          Cin, find);
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(WC_W_BYTES_MAX + (size_t)WC_ROWS * KMAX * 4));
+    if (attr != cudaSuccess) return (int)attr;
+    kernel<<<(M + WC_ROWS - 1) / WC_ROWS, WC_THREADS, warp_core_bytes(K, Cin, CO), stream>>>(
+        f, wt, out, V, M, K, Cin, find);
     return (int)cudaGetLastError();
   }
-  const size_t bytes = Layout(CO, Cin, K).bytes();
+  if constexpr (resolves_tile<Finder>::value) {  // the smallest ring holds the scratch
+    static_assert(Layout(16, 1, 1).ring_bytes() >= Finder::kScratchBytes, "resolver scratch");
+  }
   auto kernel = gather_mma_kernel<CO, VEC, Finder>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(M + TM - 1) / TM, THREADS, bytes, stream>>>(f, wt, out, V, M, K, Cin, find);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Layout(CO, KC, KMAX).bytes());
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<(M + TM - 1) / TM, THREADS, Layout(CO, Cin, K).bytes(), stream>>>(f, wt, out, V, M,
+                                                                           K, Cin, find);
   return (int)cudaGetLastError();
 }
 

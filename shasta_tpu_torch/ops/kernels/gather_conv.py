@@ -11,14 +11,16 @@ weight share one dtype, f32 or bf16; the sum is f32.
 
 The CUDA kernel (csrc/gather_conv.cu) takes one launch for all lanes, with
 no windows and no coverage check. bf16 inputs run the tensor-core cores of
-csrc/gather_mma.cuh (mma.sync m16n8k16, f32 sums, no atomics): where all of
-W fits shared memory, each warp walks its 16 rows' hit taps alone with the
-sums in registers; the wider convs compact each tap's hit rows per
-128-row tile, gather only those (cp.async) and sum into a shared tile.
-f32 inputs run the CUDA-core core csrc/gather_conv.cuh (shared with
-rulebook_conv and keyed_conv). What bounds it on the H100: bytes (the gather table M*K*4, the
-output M*Co*4, the table and W) against 2*hits*Cin*Co FLOPs; the
-scene-batched step's convs sit on the bytes side.
+csrc/gather_mma.cuh (mma.sync m16n8k16, f32 sums, no atomics), shared with
+rulebook_conv and keyed_conv: where all of W fits shared memory, the warp
+core (each warp walks its 16 rows' hit taps alone with the sums in
+registers); the wider convs the staged core (each tap's hit rows compacted
+per 128-row tile, gathered by cp.async, summed into a shared tile).
+`mma_core` names the core a conv's shapes take. f32 inputs run the
+CUDA-core core csrc/gather_conv.cuh, the f32 parity route of all three.
+What bounds it on the H100: bytes (the gather table M*K*4, the output
+M*Co*4, the table and W) against 2*hits*Cin*Co FLOPs; the scene-batched
+step's convs sit on the bytes side.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises.
@@ -36,6 +38,20 @@ from .block_conv import _ptr, check_conv_args, rulebook_conv_plain
 # row, gather (M, K, Cin), one f32 matmul; a row outside [0, V) takes the
 # zero row. rulebook_conv's plain version is that same function.
 gather_conv_plain = rulebook_conv_plain
+
+MMA_CORES = ("warp", "staged")
+
+
+def mma_core(K: int, Cin: int, Co: int) -> str:
+    """The tensor-core core (MMA_CORES) that a bf16 conv of these shapes
+    takes on the card, in any of the three conv kernels: gather_mma.cuh's
+    own choice (`core_of`)."""
+    from .build import library
+
+    fn = library("gather_conv").gather_mma_core
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return MMA_CORES[fn(K, Cin, Co)]
 
 
 @functools.cache

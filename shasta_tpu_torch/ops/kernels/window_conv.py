@@ -12,13 +12,19 @@ equals the query: the first occurrence of a duplicate key wins, the
 semantics of fused_conv_apply's exact XLA path (window_conv.py:901-921).
 A query < 0 (-2) or SENTINEL is a miss. K is 27 or 3 (the extra conv).
 
-The CUDA kernel (csrc/window_conv.cu, core in csrc/gather_conv.cuh) runs
-the binary search inside the kernel against the L2-resident key table,
-then gathers rows and accumulates in f32 like rulebook_conv. What bounds
-it on the H100: 2*hits*Cin*Co FLOPs (Cin*Co >= 4096 on the main path)
-against the queries (M*K*4 bytes), the key table and the output (M*Co*4);
-below ~7 hits per row, as on the bench frame, the bytes bound it. The
-V x Cin table (at most 25k x 64 x 2 bytes) fits in the 50 MB L2.
+The CUDA kernel (csrc/window_conv.cu) searches the L2-resident key table
+inside the kernel, then gathers rows and sums their products in f32.
+bf16 inputs run the tensor-core cores of csrc/gather_mma.cuh: res2, down3
+and res3 the staged core, whose tile resolver searches once per 64 rows
+and dx triple (csrc/sorted_search.cuh, 128 keys staged in shared memory)
+and on its own only for a tap whose query is not c - 1 + d of its
+triple's centre c, so any queries are exact; the extra conv (K=3) the
+warp core, one search per query. f32 inputs run the CUDA-core core
+csrc/gather_conv.cuh, kept for parity checks. What bounds it on the H100:
+2*hits*Cin*Co FLOPs (Cin*Co >= 4096 on the main path) against the
+queries (M*K*4 bytes), the key table and the output (M*Co*4); below ~7
+hits per row, as on the bench frame, the bytes bound it. The V x Cin
+table (at most 25k x 64 x 2 bytes) fits in the 50 MB L2.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises.

@@ -31,6 +31,7 @@ from .data.synthetic import make_batch
 from .device import resolve_device
 from .infer import FRAME_KEYS, BatchedScenePipeline, MultiClassScenePipeline, ScenePipeline
 from .models import ShastaConfig, ShastaModel
+from .ops import sparse as sp
 from .plans import frame_plans
 
 CAR = dict(max_obj=90, cap_conv2=50000, cap_conv3=25000, cap_conv4=12000,
@@ -56,6 +57,52 @@ def bench_frame(cfg, dev, seed: int = 0, lanes: int = 1):
             batch["coordinates"][0], batch["voxels_valid"][0], cfg).items()}
         frame.update({"plan_" + k: v for k, v in plans.items()})
     return batch, plans, frame
+
+
+def b1_conv_cases(cfg, frame, plans, dev):
+    """The B=1 step's 21 convs as (kernel, case, launches per frame, V, Cin,
+    Co, index tensors): each kernel's indices at the shapes the bench frame
+    (numpy `frame`, its host `plans` on dev) gives it."""
+    V = frame["coordinates"].shape[1]
+    coords0 = torch.cat([torch.zeros((V, 1), dtype=torch.int32),
+                         torch.from_numpy(frame["coordinates"][0])], 1).to(dev)
+    st0 = sp.SparseTensor(None, coords0, torch.from_numpy(frame["voxels_valid"][0]).to(dev),
+                          tuple(cfg.grid_shape), 1)
+    down = ((3, 3, 3), (2, 2, 2), (1, 1, 1))
+
+    def out_set(st, key, geom):
+        c, v, shape = sp.decode_strided_keys(plans[key], st.shape, *geom, 1)
+        return sp.SparseTensor(None, c, v, shape, 1)
+
+    def rows(st):
+        return st.coords.shape[0]
+
+    st1 = out_set(st0, "d1_keys", down)
+    st2 = out_set(st1, "d2_keys", down)
+    g3 = ((3, 3, 3), (2, 2, 2), (0, 1, 1))
+    gex = ((3, 1, 1), (2, 1, 1), (0, 0, 0))
+    st3 = out_set(st2, "d3_keys", g3)
+    stx = out_set(st3, "ex_keys", gex)
+
+    def keyed(st_in, st_out=None, geom=None):
+        skeys, perm = sp.key_table(st_in)
+        q = (sp.subm_queries(st_in) if st_out is None else
+             sp.strided_queries(st_out.coords, st_out.valid, st_in.shape, *geom))
+        return (skeys, perm, q)
+
+    rb = lambda key: (plans[key],)  # noqa: E731
+    return [
+        ("rulebook_conv", "conv_input 5->16", 1, V, 5, 16, rb("s0_rb")),
+        ("rulebook_conv", "res0 16->16", 4, V, 16, 16, rb("s0_rb")),
+        ("rulebook_conv", "down1 16->32", 1, V, 16, 32, rb("d1_rb")),
+        ("rulebook_conv", "res1 32->32", 4, rows(st1), 32, 32, rb("d1s_rb")),
+        ("rulebook_conv", "down2 32->64", 1, rows(st1), 32, 64, rb("d2_rb")),
+        ("keyed_conv", "res2 64->64", 4, rows(st2), 64, 64, keyed(st2)),
+        ("keyed_conv", "down3 64->128", 1, rows(st2), 64, 128, keyed(st2, st3, g3)),
+        ("keyed_conv", "res3 128->128", 4, rows(st3), 128, 128, keyed(st3)),
+        ("keyed_conv", "extra 128->128 K=3", 1, rows(st3), 128, 128,
+         keyed(st3, stx, gex)),
+    ]
 
 
 def car_setup(dev, dtype=torch.bfloat16, seed: int = 0, lanes: int = 1):

@@ -40,6 +40,92 @@ def test_kernels_match_plain_versions_on_the_card():
                                        atol=tol, rtol=tol)
 
 
+def _voxels(g, shape, n, V):
+    """n distinct cells of `shape`, key-sorted, in a V-row B=1 tensor whose
+    tail rows are padding (the filler key's run), on the CPU."""
+    from shasta_tpu_torch.ops import sparse as sp
+
+    Z, Y, X = shape
+    cells = torch.sort(torch.randperm(Z * Y * X, generator=g)[:n])[0]
+    coords = torch.zeros((V, 4), dtype=torch.int32)
+    coords[:n, 1], coords[:n, 2], coords[:n, 3] = cells // (Y * X), (cells // X) % Y, cells % X
+    return sp.SparseTensor(None, coords, torch.arange(V) < n, shape, 1)
+
+
+@pytest.mark.gpu
+def test_b1_conv_kernels_on_their_cores_on_the_card():
+    """keyed_conv and rulebook_conv against their plain versions on the
+    card, f32 (TF32 off) at 1e-4 and bf16 at 2e-2; a second bf16 run gives
+    the same bits. keyed_conv's queries are the B=1 step's: subm_queries and
+    strided_queries (DOWN, down3's (0,1,1) padding, the extra conv's K=3)
+    of key-sorted voxels with a filler run at the tail, in key order (the
+    staged core's triple path) and shuffled, over a table with duplicate
+    keys whose physical rows are shuffled; M is not a multiple of 128, and
+    the widths reach both tensor-core cores.
+    rulebook_conv takes the sparse hit patterns of gather_conv's test,
+    with one all-miss tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from shasta_tpu_torch.ops import sparse as sp
+    from shasta_tpu_torch.ops.kernels.block_conv import rulebook_conv, rulebook_conv_plain
+    from shasta_tpu_torch.ops.kernels.gather_conv import MMA_CORES, mma_core
+    from shasta_tpu_torch.ops.kernels.window_conv import keyed_conv, keyed_conv_plain
+
+    dev = resolve_device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def check(kern, plain, idx, cin, co, K, V, tag):
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            f = torch.randn(V, cin, generator=g).to(dev, dt)
+            w = (torch.randn(K, cin, co, generator=g) * 0.1).to(dev, dt)
+            got = kern(*idx, f, w)
+            torch.testing.assert_close(got, plain(*idx, f, w), atol=tol, rtol=tol)
+            if dt == torch.bfloat16:
+                assert torch.equal(kern(*idx, f, w), got), tag
+        return got
+
+    cores = set()
+    shape, n, V = (16, 72, 72), 18000, 18500
+    st = _voxels(g, shape, n, V)
+    phys = torch.randperm(V, generator=g)  # physical row j holds sorted row phys[j]
+    coords, at = st.coords[phys].clone(), torch.argsort(phys)
+    coords[at[100:140]] = st.coords[:40]  # 40 keys on two physical rows each
+    table = [t.to(dev) for t in sp.key_table(st._replace(coords=coords, valid=st.valid[phys]))]
+    cases = [("subm", sp.subm_queries(st), ((64, 64), (64, 128), (128, 128), (16, 32)))]
+    for geom in (((3, 3, 3), (2, 2, 2), (1, 1, 1)), ((3, 3, 3), (2, 2, 2), (0, 1, 1)),
+                 ((3, 1, 1), (2, 1, 1), (0, 0, 0))):
+        plan = sp.build_strided_plan(st, *geom, 4999, sp.key_table(st))
+        q = sp.strided_queries(plan.coords, plan.valid, shape, *geom)
+        cases.append((f"strided {geom}", q, ((64, 128), (128, 128))))
+    for tag, q, widths in cases:
+        M, K = q.shape
+        assert M % 128
+        for order, qq in (("key order", q), ("shuffled", q[torch.randperm(M, generator=g)])):
+            for cin, co in widths:
+                cores.add(mma_core(K, cin, co))
+                check(keyed_conv, keyed_conv_plain, (*table, qq.to(dev)), cin, co, K, V,
+                      (tag, order, cin, co))
+    assert cores == set(MMA_CORES), cores
+
+    V, M = 3000, 1999
+    for cin, co in ((5, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 128)):
+        for pattern in ("centre_only", "three_per_row", "all_taps"):
+            nbr = torch.randint(0, V, (M, 27), generator=g, dtype=torch.int32)
+            if pattern == "centre_only":
+                keep = torch.zeros((M, 27), dtype=torch.bool)
+                keep[:, 13] = True
+            else:
+                keep = torch.rand((M, 27), generator=g) < (3.0 / 27 if pattern ==
+                                                          "three_per_row" else 2.0)
+            miss = torch.where(torch.rand((M, 27), generator=g) < 0.5, V, -1).to(torch.int32)
+            nbr = torch.where(keep, nbr, miss)
+            nbr[256:512] = -1  # one warp-core block and two staged tiles with no hit
+            got = check(lambda i, f, w: rulebook_conv(f, i, w),
+                        lambda i, f, w: rulebook_conv_plain(f, i, w),
+                        (nbr.to(dev),), cin, co, 27, V, (cin, co, pattern))
+            assert got[256:512].abs().max() == 0
+
+
 @pytest.mark.gpu
 def test_scene_batched_kernels_match_plain_versions_on_the_card():
     """sorted_lookup in its three modes (exact) and gather_conv, f32 (TF32

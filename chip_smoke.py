@@ -43,8 +43,9 @@ Phases (any failure ends the run with a non-zero exit code):
   8. the block-extraction probe (shasta_tpu_torch.probe_block_conv) at both
      probe shapes (s0, s1) on inputs whose rows hit: its run launches
      block_extract once per (shape, variant), 10 in all; then each variant
-     against the plain version (f32, TF32 off, atol/rtol 1e-5) and the
-     times;
+     against the plain version (f32, TF32 off, atol/rtol 1e-5) and against
+     a second launch (the same bits), and each time beside its bound and
+     its share of it;
   9. drive MultiClassScenePipeline over 7 classes at full width (car trunk,
      per-class max_obj of configs/nusc/*.py: car 90, pedestrian 90, truck
      60, trailer 60, bus 20, motorcycle 50, bicycle 50; the bench frame with
@@ -321,7 +322,7 @@ def drive_pipeline(model, frame, n_curr, frames):
 
 def phase_probe():
     """Phase 8: the probe's run (10 block_extract launches, counted), then
-    each variant against its plain version and the times."""
+    each variant against its plain version and a rerun, and the times."""
     import torch
 
     from shasta_tpu_torch import probe_block_conv as probe
@@ -339,10 +340,11 @@ def phase_probe():
     for r in recs:
         print(f"  block_extract  {r['shape']} {r['variant']:9s} hits {r['hits']:8d} "
               f"nonzero rows {r['nonzero_rows']:6d}  kernel {r['ms']:.4f} ms  plain "
-              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
-              f"max abs err {r['max_abs_err']:.3g}")
+              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{100 * r['share']:.1f}% of it)  max abs err {r['max_abs_err']:.3g}")
         check(r["ok"], f"block_extract {r['shape']} {r['variant']} differs from its plain "
                        f"version (max abs err {r['max_abs_err']})")
+        check(r["same_bits"], f"block_extract {r['shape']} {r['variant']}: two runs differ")
         check(r["variant"] == "ohonly" or r["nonzero_rows"] > 0,
               f"block_extract {r['shape']} {r['variant']}: no row hit")
     return launches, recs
@@ -507,7 +509,7 @@ def main() -> int:
     from shasta_tpu_torch.ops.kernels import (block_conv, block_extract, build, gather_conv,
                                               lookup, window_conv)
     from shasta_tpu_torch.profile_step import car_setup, multiclass_setup
-    from shasta_tpu_torch.timing import HBM_BYTES_PER_S, PEAK_OPS_PER_S
+    from shasta_tpu_torch.timing import HBM_BYTES_PER_S, PEAK_OPS_PER_S, ops_ms
 
     # 1. the card
     dev = resolve_device("cuda")  # also turns TF32 off
@@ -678,10 +680,12 @@ def main() -> int:
     per_kernel["block_extract"] = dict(
         ms=sum(r["ms"] for r in probe_recs), plain_ms=sum(r["plain_ms"] for r in probe_recs),
         bound=sum(r["bound_ms"] for r in probe_recs), err=max(r["max_abs_err"] for r in probe_recs),
-        by="operations" if sum(r["ops"] for r in probe_recs) / PEAK_OPS_PER_S["float32"]
-        >= sum(r["bytes"] for r in probe_recs) / HBM_BYTES_PER_S else "bytes")
+        by="operations" if 2 * sum(r["bound_ms"] for r in probe_recs
+                                   if r["bound_by"] == "operations")
+        >= sum(r["bound_ms"] for r in probe_recs) else "bytes")
     print(f"phase 8: {launches['block_extract']} launches in the probe run, every variant "
-          f"== its plain version")
+          f"== its plain version and its rerun; probe run {per_kernel['block_extract']['ms']:.4f}"
+          f" ms against a bound of {per_kernel['block_extract']['bound']:.4f} ms")
 
     # 9. the fused 7-class step at full width
     counted = counted + (block_extract.block_extract,)
@@ -713,8 +717,8 @@ def main() -> int:
         if name == "block_extract":
             continue
         t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = (rec["ops"] / PEAK_OPS_PER_S["int32"] if "ops" in rec
-                 else rec["flops"] / PEAK_OPS_PER_S["bfloat16"]) * 1e3
+        t_ops = (ops_ms(int32=rec["ops"]) if "ops" in rec
+                 else rec["flops"] / PEAK_OPS_PER_S["bfloat16"] * 1e3)
         unit = src[name][2]
         n_units = n_frames if unit == "frame" else n_steps
         kernels.append({
@@ -746,7 +750,7 @@ def main() -> int:
                "library: none, no "
                "PyTorch call computes the block extraction",
         "cases": [{k: r[k] for k in ("shape", "variant", "hits", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "max_abs_err")}
+                                     "bound_ms", "bound_by", "share", "max_abs_err")}
                   for r in probe_recs]})
     print(json.dumps({"frames_per_s": fps, "frames_per_s_runs": fps_runs,
                       "lanes4_frames_per_s": fps4, "lanes4_frames_per_s_runs": sps_runs,

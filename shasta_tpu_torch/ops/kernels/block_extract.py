@@ -12,10 +12,14 @@ sums the f2 and k2q rows r*GB + j of those windows, and adds a per-variant
 product to the row (csrc/block_extract.cu states it in full). The five
 variants are the probe's: ohonly, extract, nokeys, noselect, full.
 
-The CUDA kernel computes that directly: a warp per row tests the guard
-pairs, ballots the hits and adds their rows, with no one-hot matmul. What
-bounds it on the H100: the operations (the guard compares, the adds per hit,
-the key-quarter compares and selects, the weight product), not the bytes.
+The CUDA kernel computes that directly, with no one-hot matmul: a block
+owns 64 rows of one tile (128 for ohonly), stages the tile's guard window
+and w[g] slice in shared memory, builds each row's hit words, adds the hit
+rows into a shared operand tile and multiplies it by the w slice, each
+thread 16 columns of one row in registers. What bounds it on the H100:
+the operations (the weight product's FLOPs, the guard compares on the
+int32 pipe, the adds per hit, the key compares and selects), not the
+bytes.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises.

@@ -75,6 +75,27 @@ def build_all() -> dict:
     return report
 
 
+def build_variant(name: str, tag: str, edit: tuple | None = None) -> ctypes.CDLL:
+    """csrc/<name>.cu built from a copy of csrc under _build/variants/<tag>/
+    with `edit` = (file, old text, new text) applied (the old text must occur
+    once), and loaded: a design the probes time beside the shipped one."""
+    d = BUILD / "variants" / tag
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(CSRC, d)
+    if edit:
+        fname, old, new = edit
+        src = (d / fname).read_text()
+        if src.count(old) != 1:
+            raise RuntimeError(f"variant {tag}: {old!r} does not occur once in {fname}")
+        (d / fname).write_text(src.replace(old, new))
+    out = d / f"{name}.so"
+    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out), str(d / f"{name}.cu")],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"variant {tag} failed to build:\n{r.stdout}{r.stderr}")
+    return ctypes.CDLL(str(out))
+
+
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library `name`, built first if needed."""

@@ -24,8 +24,6 @@ import argparse
 import concurrent.futures as cf
 import ctypes
 import json
-import shutil
-import subprocess
 import sys
 
 import torch
@@ -46,21 +44,7 @@ VARIANTS = {
 
 def build_variant(name: str, edit) -> ctypes.CDLL:
     """window_conv.cu built from a copy of csrc with `edit` applied."""
-    d = build.BUILD / "variants" / name.replace(" ", "_")
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(build.CSRC, d)
-    if edit:
-        fname, old, new = edit
-        src = (d / fname).read_text()
-        if src.count(old) != 1:
-            raise RuntimeError(f"variant {name}: {old!r} is not one line of {fname}")
-        (d / fname).write_text(src.replace(old, new))
-    out = d / "window_conv.so"
-    r = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-                        str(d / "window_conv.cu")], capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError(f"variant {name} failed to build:\n{r.stdout}{r.stderr}")
-    lib = ctypes.CDLL(str(out))
+    lib = build.build_variant("window_conv", name.replace(" ", "_"), edit)
     lib.keyed_conv_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.keyed_conv_launch.restype = ctypes.c_int
     return lib

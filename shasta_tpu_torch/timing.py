@@ -3,7 +3,9 @@ checks of chip_smoke.py and of the block-extraction probe.
 
 The peaks are NVIDIA's data sheet for the H100 SXM (dense, at its full 700
 W limit): the least time a function can take is the larger of its bytes
-over HBM_BYTES_PER_S and its operations over PEAK_OPS_PER_S[type].
+over HBM_BYTES_PER_S and the time of its operations, products in FLOPs over
+PEAK_OPS_PER_S[type], every other operation one lane instruction at the
+rate of the pipe that runs it (`ops_ms`).
 """
 from __future__ import annotations
 
@@ -13,9 +15,22 @@ import time
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
-# bf16 on the tensor cores; f32 off them; integer compares at the CUDA-core
-# rate of the f32 row
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int32": 67e12}
+# FLOP/s: bf16 on the tensor cores; f32 FMAs (two FLOPs each) off them
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# lane instructions per second: per SM and clock the f32 pipe runs 128 lanes
+# and the int32 pipe 64 (NVIDIA H100 Tensor Core GPU Architecture white
+# paper), on 132 SMs at the data sheet's 1.98 GHz boost clock
+LANE_OPS_PER_S = {"float32": 128 * 132 * 1.98e9, "int32": 64 * 132 * 1.98e9}
+
+
+def ops_ms(flops: float = 0.0, f32: float = 0.0, int32: float = 0.0) -> float:
+    """Least milliseconds for `flops` f32 FMA FLOPs, `f32` other f32 lane
+    instructions (adds, selects) and `int32` int32 lane instructions (compares):
+    the int32 pipe's time, or all of them at the schedulers' issue rate of one
+    warp instruction per SM quarter and clock (128 lanes per SM, the f32
+    pipe's rate), whichever is longer."""
+    issue = flops / PEAK_OPS_PER_S["float32"] + (f32 + int32) / LANE_OPS_PER_S["float32"]
+    return max(issue, int32 / LANE_OPS_PER_S["int32"]) * 1e3
 
 
 def median_ms(fn, reps: int = 10, on_card: bool = True) -> float:

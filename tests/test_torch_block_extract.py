@@ -89,3 +89,60 @@ def test_block_extract_is_zero_on_the_tpu_probes_own_recipe():
         want = _jax_variant(a, H, C, tile, variant)
         got = _port(a, H, C, tile, variant)
         assert not want.any() and not got.any(), variant
+
+
+@pytest.mark.parametrize("tile", [64, 256])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_block_extract_matches_the_tpu_kernel_at_other_tiles(tile, variant):
+    """Tiles of 64 and 256 rows (the kernel's blocks take 64 and 128 rows:
+    a tile of 256 is two blocks sharing one guard window)."""
+    V, C, H, NBWL, _ = GEOMS["s0"]
+    a = probe_inputs(V, C, H, NBWL, tile, seed=4, recipe="hit")
+    want = _jax_variant(a, H, C, tile, variant)
+    assert variant == "noselect" or (want != 0).any(1).mean() > 0.3
+    np.testing.assert_allclose(_port(a, H, C, tile, variant), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_block_extract_clamps_bases_at_or_above_nbr_as_the_tpu_kernel(variant):
+    """bases at or above NBr: the TPU kernel's dynamic slices clamp their
+    start, so the window is row NBr - 1 of the guards and of f2/k2q; the
+    port clamps r to [0, NBr). (A base below 0 reads differently: interpret
+    mode takes it as Python's negative index, r = -1 is row NBr - 1, where
+    the port clamps to row 0; ROADMAP.md queue 3.)"""
+    V, C, H, NBWL, tile = GEOMS["s1"]
+    a = probe_inputs(V, C, H, NBWL, tile, seed=5, recipe="hit")
+    NBr, T = a["sg1"].shape[0], a["bases"].shape[0]
+    a["bases"][0, ::2] = NBr
+    a["bases"][T - 2, 1::2] = NBr + 1
+    a["bases"][T - 1] = NBr + 7
+    want = _jax_variant(a, H, C, tile, variant)
+    # the last tile's clamped window still holds rows that hit
+    assert variant == "noselect" or want[(T - 1) * tile:].any()
+    np.testing.assert_allclose(_port(a, H, C, tile, variant), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_block_extract_negative_base_disagrees_with_interpret_mode(variant):
+    """A base of -1 (ROADMAP.md queue 3, open): interpret mode reads it from
+    the end, as row NBr - 1, where the port clamps it to row 0. Both readings
+    are pinned, and so is the disagreement they make in the last tile: the
+    day either side changes, this test says so, and the queue-3 entry is to
+    be decided then. Every other tile agrees at 1e-5."""
+    V, C, H, NBWL, tile = GEOMS["s0"]
+    a = probe_inputs(V, C, H, NBWL, tile, seed=6, recipe="hit")
+    NBr, T = a["sg1"].shape[0], a["bases"].shape[0]
+
+    def with_last_base(b):
+        out = {k: x.copy() for k, x in a.items()}
+        out["bases"][T - 1] = b
+        return out
+
+    want = _jax_variant(with_last_base(-1), H, C, tile, variant)
+    got = _port(with_last_base(-1), H, C, tile, variant)
+    np.testing.assert_array_equal(want, _jax_variant(with_last_base(NBr - 1), H, C, tile,
+                                                     variant))
+    np.testing.assert_array_equal(got, _port(with_last_base(0), H, C, tile, variant))
+    last = (T - 1) * tile
+    np.testing.assert_allclose(got[:last], want[:last], atol=1e-5, rtol=1e-5)
+    assert np.abs(got[last:] - want[last:]).max() > 1.0

@@ -189,9 +189,13 @@ def test_scene_batched_kernels_match_plain_versions_on_the_card():
 @pytest.mark.gpu
 def test_block_extract_matches_its_plain_version_on_the_card():
     """block_extract in all five variants against its plain version on the
-    card, f32 (TF32 off) at atol/rtol 1e-5, on inputs whose rows hit (both
-    probe geometries at V=8192) and whose windows overlap (chip_smoke.py
-    phase 8 runs the probe's full shapes)."""
+    card, f32 (TF32 off) at atol/rtol 1e-5, with a second run giving the same
+    bits: both probe geometries at V=8192 on rows that hit, the dup recipe's
+    overlapping windows, and what the kernel's tiling could break: tiles of
+    32, 64 and 256 rows (blocks take 64 rows, 128 for ohonly), NBWL 48 (not
+    a multiple of 32), C = 5 and 32, H = 1 and 4, bases below 0 and at or
+    above NBr, and a tile where no row hits (chip_smoke.py phase 8 runs the
+    probe's full shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from shasta_tpu_torch.ops.kernels.block_extract import (VARIANTS, block_extract,
@@ -199,15 +203,25 @@ def test_block_extract_matches_its_plain_version_on_the_card():
     from shasta_tpu_torch.probe_block_conv import probe_inputs
 
     dev = resolve_device("cuda")
-    for (C, H, NBWL), recipe in (((16, 4, 128), "hit"), ((32, 2, 256), "hit"),
-                                 ((16, 4, 128), "dup")):
-        args = {k: torch.from_numpy(v).to(dev)
-                for k, v in probe_inputs(8192, C, H, NBWL, 128, 0, recipe).items()}
+    for C, H, NBWL, tile, recipe in ((16, 4, 128, 128, "hit"), (32, 2, 256, 128, "hit"),
+                                     (16, 4, 128, 128, "dup"), (5, 1, 48, 32, "hit"),
+                                     (32, 1, 48, 64, "hit"), (16, 4, 128, 256, "dup"),
+                                     (32, 2, 256, 256, "hit"), (5, 4, 128, 64, "hit")):
+        a = probe_inputs(8192, C, H, NBWL, tile, 0, recipe)
+        NBr = a["sg1"].shape[0]
+        a["bases"][0, ::2] = -3
+        a["bases"][-1] = NBr + 2
+        a["bases"][-2, 1::2] = NBr
+        a["q"][tile:2 * tile] = -2**31 + 5  # tile 1: no window holds these rows
+        args = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
         for variant in VARIANTS:
-            kw = dict(H=H, C=C, tile=128, variant=variant)
+            kw = dict(H=H, C=C, tile=tile, variant=variant)
+            tag = (C, H, NBWL, tile, recipe, variant)
             want = block_extract_plain(**args, **kw)
             # overlapping windows sum two blocks' keys: eq, so noselect and
             # full, are then zero
-            assert recipe == "dup" or want.abs().sum() > 0, variant
-            torch.testing.assert_close(block_extract(**args, **kw), want, atol=1e-5,
-                                       rtol=1e-5)
+            assert recipe == "dup" or want.abs().sum() > 0, tag
+            got = block_extract(**args, **kw)
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5, msg=str(tag))
+            assert torch.equal(block_extract(**args, **kw), got), tag
+            assert got[tile:2 * tile].abs().max() == 0, tag

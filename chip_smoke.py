@@ -22,14 +22,17 @@ Phases (any failure ends the run with a non-zero exit code):
      with the share of its tasks that search in shared memory, and
      per mode; per conv group, gather_conv's hits per row, its core and a
      second bf16 run that must give the same bits;
+  3c, 3d. the same at the shapes of the B=1 frame without plans and of the
+     two-frame forward (2 x 120k voxels, phase 13's caps);
   4. drive ScenePipeline.step_frame at the full car width (V=120k,
      max_obj 90, 60 real dets, cls_id 2, max_age 4, bf16 trunk, random
-     weights from a numpy seed loaded through load_jax_variables): warm-up,
-     then three timed runs of 20 frames; check the softmax sums, the ids
-     and that every frame launched rulebook_conv 11 times and keyed_conv
-     10 times;
-  5. run a small configuration on cuda and on cpu (plain versions): equal
-     ids, used, keep and FN flags, refined scores within 1e-4;
+     weights from a numpy seed loaded through load_jax_variables) on the
+     frame with its host plans attached: warm-up, then three timed runs of
+     20 frames; check the softmax sums, the ids and that every frame
+     launched rulebook_conv 11 times and keyed_conv 10 times;
+  5. run a small configuration on cuda and on cpu (plain versions), with
+     host plans and without: equal ids, used, keep and FN flags, refined
+     scores within 1e-4;
   6. drive BatchedScenePipeline.step_frames at 4 lanes and the full car
      width (bench.py --lanes 4: seeds 0-3, 120k voxels and 60 real dets per
      lane): warm-up, then three timed runs of 10 steps, frames/s = lanes x
@@ -58,10 +61,29 @@ Phases (any failure ends the run with a non-zero exit code):
   10. a small configuration of 3 classes of different max_obj over 3
      frames, one class absent on the second: cuda equals cpu (ids, used,
      keep, FN exact; ref at 1e-4), and car, present on every frame, equals
-     a cuda ScenePipeline of car alone (ids up to the class-major rebase).
-The line before the last is {"kernels": [...]} (launches from phases 4, 6
-and 8, times from phases 3, 3b and 8); the last is {"ok": true, "device":
-{...}}. Imports nothing of JAX or of the JAX package.
+     a cuda ScenePipeline of car alone (ids up to the class-major rebase);
+  11. ScenePipeline.step_frame on the bench frame WITHOUT plans (every index
+     built on the card: sorted_lookup + gather_conv): each stage's output
+     set against its cap, and equal to the host plans' set (both keep the
+     cap's smallest keys where a set outgrows its cap), three timed runs of 20
+     frames with the launches and the host planner's calls (0) counted,
+     the phase-4 checks, the BEV maps' max abs difference and the det rows
+     whose id differs from the planned route (printed, not gated at bf16),
+     and both routes profiled (host wall and device busy per step);
+  12. step_chunk of 4 frames at B=1 without plans and at 4 lanes equals 4
+     single steps of a fresh pipeline (ids, used, keep, FN exact, ref at
+     1e-5);
+  13. the two-frame forward on one bench pair (curr seed 0, prev seed 1,
+     caps that truncate neither frame's sets): 12 + 21 launches, shapes,
+     softmax sums, and each frame's descriptors equal to frame_features of
+     that frame alone (bf16, 2e-2);
+  14. the device voxelizer (300k points into the 120k cap) and rotate_nms
+     (500 boxes) against the port's numpy copies: voxels and keep masks
+     exact.
+The line before the last is {"kernels": [...]} (launches per main path
+from the phases that drive one, 4, 6, 8, 9, 11, 12 and 13, each counted
+from 0 just before it; times from phases 3-3d and 8); the last is
+{"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -82,6 +104,13 @@ SMALL = dict(max_obj=10, grid_shape=(41, 80, 80), pc_start=(-3.0, -3.0),
              cap_conv2=2000, cap_conv3=1000, cap_conv4=500, cap_extra=500)
 SMALL_CLASSES = {"car": 10, "pedestrian": 8, "bus": 6}
 PROBE_ITERS = 20
+PROFILE_FRAMES = 5
+CHUNK_T = 4
+# caps of the two-frame forward's pair (bench frames of seeds 0 and 1): its
+# sets, 714835/942028/316660/129521, kept whole, so each frame's map is the
+# map of that frame alone (the bench caps 50k/25k/12k/12k per frame keep a
+# frame's smallest keys, and at 2B the curr frame's keys fill them)
+PAIR_CAPS = dict(cap_conv2=720000, cap_conv3=950000, cap_conv4=320000, cap_extra=130000)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -148,34 +177,6 @@ def phase_kernels(cfg, frame, plans, dev):
     return per_kernel
 
 
-def batched_calls(model, frame):
-    """Run the 4-lane trunk once and return the arguments of its 12
-    sorted_lookup and 21 gather_conv calls, in order, as the port built
-    them (ops/sparse.py calls both by its module-level names)."""
-    import torch
-
-    from shasta_tpu_torch.ops import sparse as sp
-
-    calls = {"sorted_lookup": [], "gather_conv": []}
-    real = {name: getattr(sp, name) for name in calls}
-
-    def recorder(name):
-        def call(*args):
-            calls[name].append(args)
-            return real[name](*args)
-        return call
-
-    try:
-        for name in calls:
-            setattr(sp, name, recorder(name))
-        with torch.no_grad():
-            model.bev_single(frame)
-    finally:
-        for name, fn in real.items():
-            setattr(sp, name, fn)
-    return calls["sorted_lookup"], calls["gather_conv"]
-
-
 def staged_share(keys, q, mode):
     """(staged, tasks): of csrc/lookup.cu's tasks (64 consecutive rows of one
     query column) with a live probe, those whose largest probe's lower bound
@@ -205,19 +206,24 @@ CONV_GROUPS = ("conv_input", "res0", "down1", "res1", "down2", "res2", "down3", 
                "extra")
 
 
-def phase_batched_kernels(model, frame):
-    """Phase 3b: sorted_lookup and gather_conv against their plain versions
-    at the 4-lane step's shapes, and their times (per step: the sum over
-    the step's calls)."""
+def phase_gather_kernels(label, run):
+    """Phases 3b-3d: the 12 sorted_lookup and 21 gather_conv calls that
+    `run()` makes (one unplanned trunk pass: the 4-lane step, the B=1 step
+    without plans or the two-frame forward), each against its plain version
+    on its own arguments, a second bf16 run (the same bits) and the times
+    (per path: the sum over its calls)."""
     import torch
 
     from shasta_tpu_torch.ops.kernels import gather_conv as gc
     from shasta_tpu_torch.ops.kernels import lookup as lk
+    from shasta_tpu_torch.probe_b1_routes import recorded
     from shasta_tpu_torch.timing import median_ms
 
-    lookups, convs = batched_calls(model, frame)
+    with recorded("sorted_lookup", "gather_conv") as calls, torch.no_grad():
+        run()
+    lookups, convs = calls["sorted_lookup"], calls["gather_conv"]
     check(len(lookups) == 12 and len(convs) == 21,
-          f"the 4-lane trunk made {len(lookups)} lookups and {len(convs)} convs")
+          f"{label}: the trunk made {len(lookups)} lookups and {len(convs)} convs")
     recs = {"sorted_lookup": dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
                                   ops=0.0, err=0.0),
             "gather_conv": dict(ms=0.0, plain_ms=0.0, library_ms=None, bytes=0.0,
@@ -227,7 +233,7 @@ def phase_batched_kernels(model, frame):
     for keys, perm, q, mode in lookups:
         got, want = lk.sorted_lookup(keys, perm, q, mode), lk.sorted_lookup_plain(keys, perm, q, mode)
         torch.cuda.synchronize()
-        check(torch.equal(got, want), f"sorted_lookup {mode} differs from its plain version")
+        check(torch.equal(got, want), f"{label}: sorted_lookup {mode} differs from its plain version")
         ms = median_ms(lambda: lk.sorted_lookup(keys, perm, q, mode))
         plain_ms = median_ms(lambda: lk.sorted_lookup_plain(keys, perm, q, mode))
         flat = q.reshape(-1)
@@ -252,7 +258,7 @@ def phase_batched_kernels(model, frame):
     groups = {}  # convs sharing input width, gather table and weight shape
     for f_path, idx, w_path in convs:
         groups.setdefault((f_path.shape, idx.data_ptr(), w_path.shape), []).append(idx)
-    check(len(groups) == len(CONV_GROUPS), f"{len(groups)} conv groups in the 4-lane trunk")
+    check(len(groups) == len(CONV_GROUPS), f"{label}: {len(groups)} conv groups in the trunk")
     for group, ((f_shape, _, w_shape), calls) in zip(CONV_GROUPS, groups.items()):
         idx, n = calls[0], len(calls)
         (V, cin), (M, K), co = f_shape, idx.shape, w_shape[2]
@@ -264,11 +270,12 @@ def phase_batched_kernels(model, frame):
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             bad = float(((got - want).abs() - rtol * want.abs()).max())
-            check(bad <= atol, f"gather_conv {group} {cin}->{co} M={M} {dt}: max abs err {err}")
+            check(bad <= atol, f"{label}: gather_conv {group} {cin}->{co} M={M} {dt}: "
+                               f"max abs err {err}")
             rec["err"] = max(rec["err"], err)
         # f, w are bf16 here: a second run gives the same bits (no atomics)
         check(torch.equal(gc.gather_conv(f, idx, w), got),
-              f"gather_conv {group}: two bf16 runs differ")
+              f"{label}: gather_conv {group}: two bf16 runs differ")
         ms = median_ms(lambda: gc.gather_conv(f, idx, w))
         plain_ms = median_ms(lambda: gc.gather_conv_plain(f, idx, w))
         hits = int(((idx >= 0) & (idx < V)).sum())
@@ -279,6 +286,9 @@ def phase_batched_kernels(model, frame):
         print(f"  gather_conv    {group:10s} {cin:3d}->{co:3d} K={K:2d} x{n}  V={V:7d} "
               f"M={M:7d} hits={hits:9d} ({hits / M:.3f}/row)  core {gc.mma_core(K, cin, co)}  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  (bf16)")
+    for name, r in recs.items():
+        print(f"  {label}: {name} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+              + (f", searchsorted {r['library_ms']:.4f} ms" if r["library_ms"] else ""))
     return recs
 
 
@@ -347,6 +357,12 @@ def phase_probe():
         check(r["same_bits"], f"block_extract {r['shape']} {r['variant']}: two runs differ")
         check(r["variant"] == "ohonly" or r["nonzero_rows"] > 0,
               f"block_extract {r['shape']} {r['variant']}: no row hit")
+    neg = probe.negative_bases(shape_cases)
+    for r in neg:
+        check(r["ok"], f"block_extract {r['shape']} {r['variant']} at base {r['r']} differs "
+                       f"from its plain version (max abs err {r['max_abs_err']})")
+    print(f"  block_extract at bases -1, -2 and -NBr (first and last tile): {len(neg)} cases "
+          f"== the plain version, max abs err {max(r['max_abs_err'] for r in neg):.3g}")
     return launches, recs
 
 
@@ -399,7 +415,7 @@ def phase_multiclass(pipe, frame, class_boxes, counted, n_frames):
     """Phase 9: warm-up, then TIMED_RUNS runs of TIMED_FRAMES frames of the
     multi-class step on the repeated frame; the launches per frame, the
     softmax sums, ids unique across classes and stable. Returns (median
-    frames/s, the runs)."""
+    frames/s, the runs, the launches)."""
     import numpy as np
     import torch
 
@@ -445,7 +461,7 @@ def phase_multiclass(pipe, frame, class_boxes, counted, n_frames):
     check(stable > 0, "no track carried over on the repeated frame")
     print(f"phase 9 checks ok; {stable} det rows kept their ids; last car ids "
           f"{outs[-1]['car'].tid[:8].tolist()}")
-    return fps, runs
+    return fps, runs, launches
 
 
 def phase_small_multiclass(dev_a, dev_b):
@@ -493,6 +509,280 @@ def phase_small_multiclass(dev_a, dev_b):
     check(len(set(relabel.values())) == len(relabel) > 0, "car ids do not relabel 1:1")
 
 
+def counted(kernels, run):
+    """run() with every kernel's launch count set to 0 just before and read
+    just after: (its result, {kernel name: launches})."""
+    import torch
+
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in kernels}
+
+
+def check_affinity(m1, m2, label):
+    import torch
+
+    check(bool(torch.isfinite(m1).all() & torch.isfinite(m2).all()), f"{label}: affinity not finite")
+    check(torch.allclose(m1.sum(2), torch.ones_like(m1.sum(2)), atol=1e-4)
+          and torch.allclose(m2.sum(1), torch.ones_like(m2.sum(1)), atol=1e-4),
+          f"{label}: m1 rows / m2 columns do not sum to 1")
+
+
+def phase_unplanned(model, frame, planned_outs, kernels):
+    """Phase 11: the B=1 step without plans on the bench frame: each stage's
+    set against its cap, timed runs with the launches and the host
+    planner's calls counted, the checks, the BEV maps and the ids beside
+    the planned route's, and a profile of both routes (host wall and device
+    busy per step). Returns (median frames/s, runs, launches, profiles)."""
+    import torch
+
+    from shasta_tpu_torch.ops import sparse as sp
+    from shasta_tpu_torch.plans import frame_plans
+    from shasta_tpu_torch.probe_b1_routes import stage_sets
+    from shasta_tpu_torch.profile_step import profile_steps, step_fn, without_plans
+
+    nop = without_plans(frame)
+    for st, key in zip(stage_sets(lambda: model.bev_single(nop)),
+                       ("d1_keys", "d2_keys", "d3_keys", "ex_keys")):
+        print(f"  {st['name']:6s} output set {st['distinct']:7d} of cap {st['cap']:7d}"
+              + (" (truncated to the cap's smallest keys)" if st["distinct"] > st["cap"] else ""))
+        # the set built on the card is the host plans' set, truncated alike
+        coords, valid, _ = sp.decode_strided_keys(frame["plan_" + key], *st["geometry"], 1)
+        check(torch.equal(coords, st["coords"]) and torch.equal(valid, st["valid"]),
+              f"{st['name']}: the set built on the card differs from the host plans'")
+    drive_pipeline(model, nop, 60, WARMUP_FRAMES)
+    frame_plans.calls = 0
+    runs, outs = [], []
+
+    def timed():
+        for _ in range(TIMED_RUNS):
+            t0 = time.perf_counter()
+            outs.extend(drive_pipeline(model, nop, 60, TIMED_FRAMES))
+            torch.cuda.synchronize()
+            runs.append(TIMED_FRAMES / (time.perf_counter() - t0))
+    _, launches = counted(kernels, timed)
+    n = TIMED_RUNS * TIMED_FRAMES
+    fps = statistics.median(runs)
+    print(f"phase 11: {TIMED_RUNS} runs of {TIMED_FRAMES} frames at "
+          f"{[round(x, 3) for x in runs]} frames/s (median {fps:.3f}); launches {launches}; "
+          f"host planner calls {frame_plans.calls}")
+    check(frame_plans.calls == 0, f"the unplanned step called the host planner "
+                                  f"{frame_plans.calls} times")
+    want = {k.__name__: 0 for k in kernels}
+    want.update(sorted_lookup=12 * n, gather_conv=21 * n)
+    check(launches == want, f"expected 12 sorted_lookup + 21 gather_conv launches per "
+                            f"unplanned frame, got {launches}")
+    with torch.no_grad():
+        feat = model.frame_features(nop)
+        m1, m2 = model.affinity_step(nop["det_boxes"], nop["det_boxes"], feat, feat)
+        bev_diff = float((model.bev_single(nop) - model.bev_single(frame)).abs().max())
+    check_affinity(m1, m2, "unplanned B=1")
+    for out in outs:
+        check(out.used.any() and bool((out.tid[out.used] >= 1).all()),
+              "unplanned: a used det row has no id >= 1")
+    # the last run of each route, frame by frame from a fresh pipeline
+    rows = sum(int((a.tid != b.tid).sum()) for a, b in zip(outs[-TIMED_FRAMES:],
+                                                          planned_outs[-TIMED_FRAMES:]))
+    print(f"phase 11 checks ok; against the planned route: BEV max abs diff {bev_diff:.4g} "
+          f"(bf16), det rows whose id differs {rows} of "
+          f"{TIMED_FRAMES * outs[-1].tid.shape[-1]} (not gated)")
+    profiles = {}
+    for label, f in (("planned", frame), ("unplanned", nop)):
+        step = step_fn(model, f, 1)
+        for _ in range(2):
+            step().tid
+        p = profile_steps(step, PROFILE_FRAMES)
+        profiles[label] = {k: p[k] for k in ("wall_ms", "busy_ms", "launches")}
+        print(f"  {label:9s} profiled: host wall {p['wall_ms']:.3f} ms, device busy "
+              f"{p['busy_ms']:.3f} ms per step ({100 * p['busy_ms'] / p['wall_ms']:.1f}%), "
+              f"{p['launches']:.0f} kernels and copies; trunk span (host, device) "
+              f"{tuple(round(x, 3) for x in p['spans'].get('step.sparse_trunk', (0, 0)))}")
+    return fps, runs, launches, profiles
+
+
+def moving(frame, t):
+    """The frame with its dets moved 0.2 m per step along x and y."""
+    boxes = frame["det_boxes"].clone()
+    boxes[..., :2] += 0.2 * t
+    return dict(frame, det_boxes=boxes)
+
+
+def same_outputs(got, want, label):
+    import numpy as np
+
+    for field in ("tid", "used", "keep", "fn"):
+        check(np.array_equal(getattr(got, field), getattr(want, field)),
+              f"{label}: {field} differs")
+    check(np.allclose(got.ref, want.ref, atol=1e-5, rtol=0), f"{label}: ref differs")
+
+
+def phase_chunk(model, frame, model4, frame4, kernels):
+    """Phase 12: step_chunk of T frames at B=1 (no plans) and at 4 lanes
+    against T single steps of a fresh pipeline. Returns the chunks'
+    launches."""
+    import torch
+
+    from shasta_tpu_torch.infer import BatchedScenePipeline, ScenePipeline
+    from shasta_tpu_torch.profile_step import without_plans
+
+    T = CHUNK_T
+    frames = [moving(without_plans(frame), t) for t in range(T)]
+    single = ScenePipeline(model, cls_id=2)
+    want = [single.step_frame(f, 60, 0.5) for f in frames]
+    stacked = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+    pipe = ScenePipeline(model, cls_id=2)
+    got, launches = counted(kernels, lambda: pipe.step_chunk(stacked, [60] * T, [0.5] * T))
+    check(got.tid.shape == (T, 2 * model.cfg.max_obj), f"B=1 chunk shape {got.tid.shape}")
+    for t in range(T):
+        same_outputs(At(got, t), want[t], f"B=1 chunk step {t}")
+    frames4 = [moving(frame4, t) for t in range(T)]
+    single4 = BatchedScenePipeline(model4, cls_id=2, batch=LANES)
+    want4 = [single4.step_frames(f, [60] * LANES, [t == 0] * LANES, [0.5] * LANES)
+             for t, f in enumerate(frames4)]
+    stacked4 = {k: torch.stack([f[k] for f in frames4]) for k in frames4[0]}
+    pipe4 = BatchedScenePipeline(model4, cls_id=2, batch=LANES)
+    resets = [[t == 0] * LANES for t in range(T)]
+    got4, launches4 = counted(kernels, lambda: pipe4.step_chunk(
+        stacked4, [[60] * LANES] * T, resets, [[0.5] * LANES] * T))
+    check(got4.tid.shape == (T, LANES, 2 * model.cfg.max_obj), f"4-lane chunk {got4.tid.shape}")
+    for t in range(T):
+        same_outputs(At(got4, t), want4[t], f"4-lane chunk step {t}")
+    for name, n in (("B=1", launches), (f"{LANES} lanes", launches4)):
+        want_l = {k.__name__: 0 for k in kernels}
+        want_l.update(sorted_lookup=12 * T, gather_conv=21 * T)
+        check(n == want_l, f"{name} chunk launches {n}")
+    print(f"phase 12: step_chunk of {T} frames == {T} single steps (ids, used, keep, fn exact; "
+          f"ref at 1e-5) at B=1 without plans and at {LANES} lanes; launches {launches}, "
+          f"{launches4}")
+    return {k: launches[k] + launches4[k] for k in launches}
+
+
+class At:
+    """Step t of a chunk's StepOutput, with StepOutput's fields."""
+
+    def __init__(self, out, t):
+        self._out, self._t = out, t
+
+    def __getattr__(self, field):
+        return getattr(self._out, field)[self._t]
+
+
+def phase_forward(model2, frame2, kernels):
+    """Phase 13: the two-frame forward on one bench pair (lane 0 of the
+    2-lane frame as curr, lane 1 as prev: 2 x 120k voxels, PAIR_CAPS, which
+    must truncate no set): launches, shapes, softmax sums, and each frame's
+    descriptors against frame_features of that frame alone (bf16, 2e-2).
+    Returns the launches."""
+    import torch
+
+    from shasta_tpu_torch.core.bilinear import sample_bev_features
+    from shasta_tpu_torch.core.boxes import box_points_5
+    from shasta_tpu_torch.infer import FRAME_KEYS
+
+    from shasta_tpu_torch.probe_b1_routes import stage_sets
+
+    c = model2.cfg
+    batch = {k: frame2[k][:1] for k in FRAME_KEYS}
+    batch.update({"prev_" + k: frame2[k][1:2] for k in FRAME_KEYS})
+    sets = stage_sets(lambda: model2.bev_maps(batch))
+    print("  pair's output sets of caps: " + ", ".join(
+        f"{st['name']} {st['distinct']} of {st['cap']}" for st in sets))
+    check(all(st["distinct"] <= st["cap"] for st in sets), "a cap truncates the pair's sets")
+    with torch.no_grad():
+        (m1, m2), launches = counted(kernels, lambda: model2(batch))
+        N = c.max_obj
+        check(tuple(m1.shape) == (1, N, N + 2) and tuple(m2.shape) == (1, N + 2, N),
+              f"forward shapes {tuple(m1.shape)}, {tuple(m2.shape)}")
+        check_affinity(m1, m2, "two-frame forward")
+        bev, prev_bev = model2.bev_maps(batch)
+        err = 0.0
+        for b, p in ((bev, ""), (prev_bev, "prev_")):
+            boxes = batch[p + "det_boxes"]
+            feat = sample_bev_features(b, box_points_5(boxes[..., :7]), c.pc_start,
+                                       c.voxel_size, c.out_stride)
+            alone = model2.frame_features({k: batch[p + k] for k in FRAME_KEYS})
+            e = float((feat - alone).abs().max())
+            err = max(err, e)
+            check(torch.allclose(feat, alone, atol=2e-2, rtol=2e-2),
+                  f"forward {p or 'curr '}descriptors differ from frame_features: {e}")
+    want = {k.__name__: 0 for k in kernels}
+    want.update(sorted_lookup=12, gather_conv=21)
+    check(launches == want, f"expected 12 + 21 launches per two-frame forward, got {launches}")
+    print(f"phase 13: two-frame forward ok; launches {launches}; descriptors vs frame_features "
+          f"max abs diff {err:.4g} (bf16, 2e-2)")
+    return launches
+
+
+def phase_box_ops(dev):
+    """Phase 14: the device voxelizer on ~300k points into a 120k-voxel cap,
+    and rotated NMS over 500 boxes, against the port's numpy copies: voxels
+    exact (the numpy voxels in grid-key order), keep masks exact."""
+    import numpy as np
+    import torch
+
+    from shasta_tpu_torch.ops import nms, voxelize
+
+    rng = np.random.default_rng(14)
+    # a sweep-like cloud: 300k points around 40k surface spots, ~97k voxels
+    # of a 0.1 m grid (under the cap: there the two voxel orders keep the
+    # same set)
+    vs, cr = [0.1, 0.1, 0.2], [-54.0, -54.0, -5.0, 54.0, 54.0, 3.0]
+    centers = rng.uniform([-50, -50, -3], [50, 50, 1], size=(40000, 3))
+    pts = np.concatenate([centers[rng.integers(0, len(centers), 300000)]
+                          + rng.normal(0, 0.02, (300000, 3)),
+                          rng.uniform(0, 1, (300000, 2))], 1).astype(np.float32)
+    t0 = time.perf_counter()
+    vn, cn, nn = voxelize.points_to_voxel_np(pts, vs, cr, 10, 120000)
+    np_s = time.perf_counter() - t0
+    tp = torch.from_numpy(pts).to(dev)
+    voxelize.points_to_voxel(tp, vs, cr, 10, 120000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v, c, n, valid = voxelize.points_to_voxel(tp, vs, cr, 10, 120000)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    k = int(valid.sum())
+    check(k == len(cn) < 120000, f"voxels: {k} on the card, {len(cn)} on the host (cap 120000)")
+    gs = voxelize.grid_size(vs, cr)
+    order = np.argsort((cn[:, 0].astype(np.int64) * gs[1] + cn[:, 1]) * gs[0] + cn[:, 2])
+    check(np.array_equal(c[:k].cpu().numpy(), cn[order])
+          and np.array_equal(n[:k].cpu().numpy(), nn[order])
+          and np.array_equal(v[:k].cpu().numpy(), vn[order]), "voxels differ from the numpy copy")
+    boxes = np.zeros((500, 7), np.float32)
+    boxes[:, :2] = rng.uniform(-30, 30, (500, 2))
+    boxes[:, 2] = rng.uniform(-1, 1, 500)
+    boxes[:, 3:6] = rng.uniform(1, 5, (500, 3))
+    boxes[:, 6] = rng.uniform(-np.pi, np.pi, 500)
+    scores = rng.uniform(0, 1, 500).astype(np.float32)
+    tb, ts = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+    nms.rotate_nms(tb, ts, 0.2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keep = nms.rotate_nms(tb, ts, 0.2).cpu().numpy()
+    nms_s = time.perf_counter() - t0
+    want = np.zeros(500, bool)
+    want[nms.rotate_nms_np(boxes, scores, 0.2)] = True
+    check(np.array_equal(keep, want), f"rotate_nms keeps {keep.sum()}, the numpy copy "
+                                      f"{want.sum()}, {int((keep != want).sum())} differ")
+    print(f"phase 14: {len(pts)} points -> {k} voxels == the numpy copy (host {np_s * 1e3:.1f} ms, "
+          f"card {dev_s * 1e3:.1f} ms, host clock); rotate_nms over 500 boxes keeps "
+          f"{int(keep.sum())} == the numpy copy (card {nms_s * 1e3:.1f} ms)")
+
+
+def bound_of(rec) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") of a kernel record's counted
+    bytes and operations on the H100 (shasta_tpu_torch.timing)."""
+    from shasta_tpu_torch.timing import HBM_BYTES_PER_S, PEAK_OPS_PER_S, ops_ms
+
+    t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops_ms(int32=rec["ops"]) if "ops" in rec
+             else rec["flops"] / PEAK_OPS_PER_S["bfloat16"] * 1e3)
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -508,9 +798,11 @@ def main() -> int:
     from shasta_tpu_torch.models import ShastaConfig, ShastaModel
     from shasta_tpu_torch.ops.kernels import (block_conv, block_extract, build, gather_conv,
                                               lookup, window_conv)
-    from shasta_tpu_torch.profile_step import car_setup, multiclass_setup
-    from shasta_tpu_torch.timing import HBM_BYTES_PER_S, PEAK_OPS_PER_S, ops_ms
+    from shasta_tpu_torch.plans import attach_plans, frame_plans
+    from shasta_tpu_torch.profile_step import (CAR, bench_frame, car_setup, multiclass_setup,
+                                               without_plans)
 
+    t_start = time.perf_counter()
     # 1. the card
     dev = resolve_device("cuda")  # also turns TF32 off
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -531,6 +823,9 @@ def main() -> int:
         print(f"--- {name} ptxas ---\n{log.strip()}")
     for name in build.SOURCES:
         build.library(name)
+    kernels = (block_conv.rulebook_conv, window_conv.keyed_conv, lookup.sorted_lookup,
+               gather_conv.gather_conv, block_extract.block_extract)
+    path_launches = {}  # main path -> {kernel: launches in its run}
 
     # bench-scale frame, its host plans and the bf16 model (bench.py:39-41,121-148)
     t0 = time.perf_counter()
@@ -539,100 +834,110 @@ def main() -> int:
     # the 4-lane frame and model of bench.py --lanes 4 (bench.py:75-97,121-134)
     t0 = time.perf_counter()
     cfg4, _, _, model4, frame4 = car_setup(dev, lanes=LANES)
-    print(f"set-up, {LANES} lanes (frames, weights): {time.perf_counter() - t0:.2f} s")
+    # the two-frame forward's pair: the frames of seeds 0 and 1, caps that
+    # hold both frames' sets whole
+    cfg2 = ShastaConfig(**dict(CAR, **PAIR_CAPS), dtype=torch.bfloat16)
+    _, _, frame2 = bench_frame(cfg2, dev, lanes=2)
+    model2 = ShastaModel(cfg2, device=dev)
+    load_jax_variables(model2, random_jax_variables(model2, seed=0))
+    print(f"set-up, {LANES} and 2 lanes (frames, weights): {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels against their plain versions
     print("phase 3: kernels vs plain versions at main-path shapes")
     per_kernel = phase_kernels(cfg, batch, plans, dev)
-    print(f"phase 3b: kernels vs plain versions at the {LANES}-lane step's shapes")
-    per_kernel.update(phase_batched_kernels(model4, frame4))
+    gather_paths = {}
+    for phase, label, run in (
+            ("3b", f"{LANES}-lane step", lambda: model4.bev_single(frame4)),
+            ("3c", "B=1 frame without plans", lambda: model.bev_single(without_plans(frame))),
+            ("3d", "two-frame forward", lambda: model2.bev_maps(
+                {p + k: frame2[k][i:i + 1] for i, p in enumerate(("", "prev_"))
+                 for k in FRAME_KEYS}))):
+        print(f"phase {phase}: kernels vs plain versions at the {label}'s shapes")
+        gather_paths[label] = phase_gather_kernels(label, run)
+    per_kernel.update(gather_paths[f"{LANES}-lane step"])
 
     # 4. full-width serving step
     drive_pipeline(model, frame, 60, WARMUP_FRAMES)
-    torch.cuda.synchronize()
-    block_conv.rulebook_conv.launches = 0
-    window_conv.keyed_conv.launches = 0
     fps_runs, outs = [], []
-    for _ in range(TIMED_RUNS):
-        t0 = time.perf_counter()
-        outs += drive_pipeline(model, frame, 60, TIMED_FRAMES)
-        torch.cuda.synchronize()
-        fps_runs.append(TIMED_FRAMES / (time.perf_counter() - t0))
-    launches = {"rulebook_conv": block_conv.rulebook_conv.launches,
-                "keyed_conv": window_conv.keyed_conv.launches}
+
+    def timed4():
+        for _ in range(TIMED_RUNS):
+            t0 = time.perf_counter()
+            outs.extend(drive_pipeline(model, frame, 60, TIMED_FRAMES))
+            torch.cuda.synchronize()
+            fps_runs.append(TIMED_FRAMES / (time.perf_counter() - t0))
+    _, launches = counted(kernels, timed4)
+    path_launches["4: B=1 step with plans"] = launches
     fps = statistics.median(fps_runs)
     n_frames = TIMED_RUNS * TIMED_FRAMES
     print(f"phase 4: {TIMED_RUNS} runs of {TIMED_FRAMES} frames at "
           f"{[round(x, 3) for x in fps_runs]} frames/s (median {fps:.3f}); "
           f"launches {launches}")
-    check(launches == {"rulebook_conv": 11 * n_frames, "keyed_conv": 10 * n_frames},
-          f"expected 11 + 10 kernel launches per frame, got {launches}")
+    want = {k.__name__: 0 for k in kernels}
+    want.update(rulebook_conv=11 * n_frames, keyed_conv=10 * n_frames)
+    check(launches == want, f"expected 11 + 10 kernel launches per frame, got {launches}")
     with torch.no_grad():
         feat = model.frame_features(frame)
         m1, m2 = model.affinity_step(frame["det_boxes"], frame["det_boxes"], feat, feat)
     want_shape = (1, cfg.max_obj, cfg.num_point * cfg.share_conv_channel)
     check(tuple(feat.shape) == want_shape and bool(torch.isfinite(feat).all()),
           f"descriptors are not finite {want_shape}")
-    check(bool(torch.isfinite(m1).all() & torch.isfinite(m2).all()), "affinity not finite")
-    check(torch.allclose(m1.sum(2), torch.ones_like(m1.sum(2)), atol=1e-4)
-          and torch.allclose(m2.sum(1), torch.ones_like(m2.sum(1)), atol=1e-4),
-          "m1 rows / m2 columns do not sum to 1")
+    check_affinity(m1, m2, "B=1")
     for out in outs:
         check(out.used.any() and bool((out.tid[out.used] >= 1).all()),
               "a used det row has no id >= 1")
     print(f"phase 4 checks ok; last ids {outs[-1].tid[:12].tolist()}")
 
-    # 5. small configuration: cuda against cpu
+    # 5. small configuration, with host plans and without: cuda against cpu
     small_cfg = ShastaConfig(**SMALL)
-    runs = {}
-    for d in ("cuda", "cpu"):
-        m = ShastaModel(small_cfg, device=d)
-        load_jax_variables(m, random_jax_variables(m, seed=1))
-        pipe5 = ScenePipeline(m, cls_id=2)
-        res = []
-        for s in range(3):
-            b = make_batch(small_cfg, num_voxels_cap=2500, n_dets=7, seed=s)
-            res.append(pipe5.step_frame(b, 7, 0.5))
-        runs[d] = res
-    for a, b in zip(runs["cuda"], runs["cpu"]):
-        for field in ("tid", "used", "keep", "fn"):
-            check(np.array_equal(getattr(a, field), getattr(b, field)),
-                  f"small config: cuda and cpu differ in {field}")
-        check(np.allclose(a.ref, b.ref, atol=1e-4), "small config: ref differs")
-    print("phase 5: small config cuda == cpu")
+    for route in ("plans", "no plans"):
+        runs = {}
+        for d in ("cuda", "cpu"):
+            m = ShastaModel(small_cfg, device=d)
+            load_jax_variables(m, random_jax_variables(m, seed=1))
+            pipe5 = ScenePipeline(m, cls_id=2)
+            res = []
+            for s in range(3):
+                b = make_batch(small_cfg, num_voxels_cap=2500, n_dets=7, seed=s)
+                if route == "plans":
+                    b = attach_plans(b, frame_plans(b["coordinates"][0], b["voxels_valid"][0],
+                                                    small_cfg))
+                res.append(pipe5.step_frame(b, 7, 0.5))
+            runs[d] = res
+        for a, b in zip(runs["cuda"], runs["cpu"]):
+            for field in ("tid", "used", "keep", "fn"):
+                check(np.array_equal(getattr(a, field), getattr(b, field)),
+                      f"small config, {route}: cuda and cpu differ in {field}")
+            check(np.allclose(a.ref, b.ref, atol=1e-4), f"small config, {route}: ref differs")
+    print("phase 5: small config cuda == cpu, with host plans and without")
 
     # 6. full-width scene-batched step, 4 lanes
-    counted = (block_conv.rulebook_conv, window_conv.keyed_conv, lookup.sorted_lookup,
-               gather_conv.gather_conv)
     drive_batched(model4, frame4, 2)
-    torch.cuda.synchronize()
-    for k in counted:
-        k.launches = 0
     sps_runs, outs4 = [], []
-    for _ in range(TIMED_RUNS):
-        t0 = time.perf_counter()
-        outs4 += drive_batched(model4, frame4, TIMED_STEPS)
-        torch.cuda.synchronize()
-        sps_runs.append(LANES * TIMED_STEPS / (time.perf_counter() - t0))
-    launches6 = {k.__name__: k.launches for k in counted}
-    launches.update(sorted_lookup=launches6["sorted_lookup"],
-                    gather_conv=launches6["gather_conv"])
+
+    def timed6():
+        for _ in range(TIMED_RUNS):
+            t0 = time.perf_counter()
+            outs4.extend(drive_batched(model4, frame4, TIMED_STEPS))
+            torch.cuda.synchronize()
+            sps_runs.append(LANES * TIMED_STEPS / (time.perf_counter() - t0))
+    _, launches6 = counted(kernels, timed6)
+    path_launches[f"6: {LANES}-lane step"] = launches6
     fps4 = statistics.median(sps_runs)
     n_steps = TIMED_RUNS * TIMED_STEPS
     print(f"phase 6: {TIMED_RUNS} runs of {TIMED_STEPS} steps x {LANES} lanes at "
           f"{[round(x, 3) for x in sps_runs]} frames/s (median {fps4:.3f}); "
           f"launches {launches6}")
-    check(launches6 == {"rulebook_conv": 0, "keyed_conv": 0, "sorted_lookup": 12 * n_steps,
-                        "gather_conv": 21 * n_steps},
+    want = {k.__name__: 0 for k in kernels}
+    want.update(sorted_lookup=12 * n_steps, gather_conv=21 * n_steps)
+    check(launches6 == want,
           f"expected 12 sorted_lookup + 21 gather_conv launches per step, got {launches6}")
     with torch.no_grad():
         feat = model4.frame_features(frame4)
         m1, m2 = model4.affinity_step(frame4["det_boxes"], frame4["det_boxes"], feat, feat)
     check(tuple(feat.shape) == (LANES,) + want_shape[1:] and bool(torch.isfinite(feat).all()),
           "4-lane descriptors are not finite")
-    check(torch.allclose(m1.sum(2), torch.ones_like(m1.sum(2)), atol=1e-4)
-          and torch.allclose(m2.sum(1), torch.ones_like(m2.sum(1)), atol=1e-4),
-          "4-lane m1 rows / m2 columns do not sum to 1")
+    check_affinity(m1, m2, f"{LANES} lanes")
     for out in outs4:
         for lane in range(LANES):
             ids = out.tid[lane][out.used[lane]]
@@ -676,25 +981,27 @@ def main() -> int:
 
     # 8. the block-extraction probe
     print("phase 8: block_extract at the probe's shapes (s0, s1), five variants")
-    launches["block_extract"], probe_recs = phase_probe()
+    n_probe, probe_recs = phase_probe()
+    path_launches["8: probe run"] = {k.__name__: 0 for k in kernels}
+    path_launches["8: probe run"]["block_extract"] = n_probe
     per_kernel["block_extract"] = dict(
         ms=sum(r["ms"] for r in probe_recs), plain_ms=sum(r["plain_ms"] for r in probe_recs),
         bound=sum(r["bound_ms"] for r in probe_recs), err=max(r["max_abs_err"] for r in probe_recs),
         by="operations" if 2 * sum(r["bound_ms"] for r in probe_recs
                                    if r["bound_by"] == "operations")
         >= sum(r["bound_ms"] for r in probe_recs) else "bytes")
-    print(f"phase 8: {launches['block_extract']} launches in the probe run, every variant "
+    print(f"phase 8: {n_probe} launches in the probe run, every variant "
           f"== its plain version and its rerun; probe run {per_kernel['block_extract']['ms']:.4f}"
           f" ms against a bound of {per_kernel['block_extract']['bound']:.4f} ms")
 
     # 9. the fused 7-class step at full width
-    counted = counted + (block_extract.block_extract,)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     setup9 = multiclass_setup(dev)
     print(f"set-up, 7 classes (class models on the host, stacked heads): "
           f"{time.perf_counter() - t0:.2f} s; classes {setup9[0].max_obj}")
-    fps7, fps7_runs = phase_multiclass(*setup9, counted, n_frames)
+    fps7, fps7_runs, path_launches["9: 7-class step"] = phase_multiclass(*setup9, kernels,
+                                                                         n_frames)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(f"phase 9: peak device memory {peak_gb:.3f} GiB ({smi})")
     del setup9
@@ -704,59 +1011,76 @@ def main() -> int:
     phase_small_multiclass("cuda", "cpu")
     print("phase 10: 3 classes cuda == cpu, and car == its single-class pipeline")
 
-    kernels = []
+    # 11. the B=1 step without plans
+    print("phase 11: the B=1 step without host plans (every index built on the card)")
+    fps_nop, fps_nop_runs, path_launches["11: B=1 step without plans"], profiles = \
+        phase_unplanned(model, frame, outs, kernels)
+
+    # 12. step_chunk at B=1 and at 4 lanes
+    path_launches["12: step_chunk"] = phase_chunk(model, frame, model4, frame4, kernels)
+
+    # 13. the two-frame forward
+    path_launches["13: two-frame forward"] = phase_forward(model2, frame2, kernels)
+
+    # 14. device box ops
+    phase_box_ops(dev)
+
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
-                             "shasta_tpu/ops/pallas/block_conv.py:117", "frame"),
+                             "shasta_tpu/ops/pallas/block_conv.py:117", "B=1 frame with plans"),
            "keyed_conv": ("shasta_tpu_torch/csrc/window_conv.cu",
-                          "shasta_tpu/ops/pallas/window_conv.py:719", "frame"),
+                          "shasta_tpu/ops/pallas/window_conv.py:719", "B=1 frame with plans"),
            "sorted_lookup": ("shasta_tpu_torch/csrc/lookup.cu",
-                             "shasta_tpu/ops/pallas/window_conv.py:170", "batched step"),
+                             "shasta_tpu/ops/pallas/window_conv.py:170", f"{LANES}-lane step"),
            "gather_conv": ("shasta_tpu_torch/csrc/gather_conv.cu",
-                           "shasta_tpu/ops/pallas/window_conv.py:480", "batched step")}
+                           "shasta_tpu/ops/pallas/window_conv.py:480", f"{LANES}-lane step")}
+    out_kernels = []
     for name, rec in per_kernel.items():
+        by_path = {p: n[name] for p, n in path_launches.items() if n[name]}
+        entry = {"name": name, "route": "cuda", "launches": sum(by_path.values()),
+                 "launches_by_path": by_path, "max_abs_err": rec["err"], "ms": rec["ms"],
+                 "plain_ms": rec["plain_ms"]}
         if name == "block_extract":
+            entry.update(
+                source="shasta_tpu_torch/csrc/block_extract.cu",
+                replaces="tools/probe_block_conv.py:43", bound_ms=rec["bound"],
+                bound_by=rec["by"], library_ms=None,
+                per="one probe run: the sum over its 10 launches (s0, s1 x five variants), "
+                    f"each the median of {PROBE_ITERS} CUDA-event-timed launches, f32; "
+                    "library: none, no PyTorch call computes the block extraction",
+                cases=[{k: r[k] for k in ("shape", "variant", "hits", "ms", "plain_ms",
+                                          "bound_ms", "bound_by", "share", "max_abs_err")}
+                       for r in probe_recs])
+            out_kernels.append(entry)
             continue
-        t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = (ops_ms(int32=rec["ops"]) if "ops" in rec
-                 else rec["flops"] / PEAK_OPS_PER_S["bfloat16"] * 1e3)
+        bound_ms, bound_by = bound_of(rec)
         unit = src[name][2]
-        n_units = n_frames if unit == "frame" else n_steps
-        kernels.append({
-            "name": name, "route": "cuda", "source": src[name][0],
-            "replaces": src[name][1], "launches": launches[name],
-            "launches_per": f"{launches[name] / n_units:g} per {unit} "
-                            f"({launches[name]} over {n_units} {unit}s)",
-            "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": rec.get("library_ms"),
-            "per": (f"one {unit}'s launches (sum over its calls, each call's time the "
-                    f"median of 10 CUDA-event-timed calls)"
-                    + (" at bf16" if "flops" in rec else "")
-                    + ("; library: torch.searchsorted on the same flattened queries, "
-                       "positions only (no perm gather, no hit test, one search per "
-                       "triple centre)" if name == "sorted_lookup" else "")),
-        })
-    rec = per_kernel["block_extract"]
-    kernels.append({
-        "name": "block_extract", "route": "cuda",
-        "source": "shasta_tpu_torch/csrc/block_extract.cu",
-        "replaces": "tools/probe_block_conv.py:43", "launches": launches["block_extract"],
-        "launches_per": "0 per serving frame; 10 per probe run",
-        "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-        "bound_ms": rec["bound"], "bound_by": rec["by"], "library_ms": None,
-        "per": "one probe run: the sum over its 10 launches (s0, s1 x five variants), "
-               f"each the median of {PROBE_ITERS} CUDA-event-timed launches, f32; "
-               "library: none, no "
-               "PyTorch call computes the block extraction",
-        "cases": [{k: r[k] for k in ("shape", "variant", "hits", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "share", "max_abs_err")}
-                  for r in probe_recs]})
+        entry.update(
+            source=src[name][0], replaces=src[name][1], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=rec.get("library_ms"),
+            per=(f"one {unit}'s launches (sum over its calls, each call's time the "
+                 f"median of 10 CUDA-event-timed calls)"
+                 + (" at bf16" if "flops" in rec else "")
+                 + ("; library: torch.searchsorted on the same flattened queries, "
+                    "positions only (no perm gather, no hit test, one search per "
+                    "triple centre)" if name == "sorted_lookup" else "")))
+        if name in ("sorted_lookup", "gather_conv"):
+            entry["paths"] = {}
+            for label, recs in gather_paths.items():
+                r = recs[name]
+                b_ms, b_by = bound_of(r)
+                entry["paths"][label] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms,
+                                             bound_by=b_by, library_ms=r["library_ms"],
+                                             max_abs_err=r["err"])
+        out_kernels.append(entry)
     print(json.dumps({"frames_per_s": fps, "frames_per_s_runs": fps_runs,
+                      "b1_no_plans_frames_per_s": fps_nop,
+                      "b1_no_plans_frames_per_s_runs": fps_nop_runs,
+                      "b1_profiles": profiles,
                       "lanes4_frames_per_s": fps4, "lanes4_frames_per_s_runs": sps_runs,
                       "classes7_frames_per_s": fps7, "classes7_frames_per_s_runs": fps7_runs,
-                      "classes7_peak_device_gib": peak_gb, "card": smi, "host": host}))
-    print(json.dumps({"kernels": kernels}))
+                      "classes7_peak_device_gib": peak_gb, "card": smi, "host": host,
+                      "seconds": time.perf_counter() - t_start}))
+    print(json.dumps({"kernels": out_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

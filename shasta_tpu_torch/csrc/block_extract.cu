@@ -20,11 +20,11 @@
 //               (eq_d[j]: all 4 byte quarters of q[m,3g+d] equal akey[c*2H+j])
 //     then      acc += (concat(row_0, row_1, row_2) @ w[g, 2, :3C])[:C]
 // The semantics hold for any input: several ones in oh (duplicated guard
-// values) add several rows, no one adds nothing. r is clamped to [0, NBr):
-// that clamp is the port's own contract. The TPU kernel does not check r:
-// on the TPU an r outside [0, NBr) reads outside the window, and Pallas
-// interpret mode clamps an r at or above NBr as the port does but reads a
-// negative r from the end (ROADMAP.md, queue 3).
+// values) add several rows, no one adds nothing. An r outside [0, NBr) is
+// read as the TPU kernel's dynamic slices read it in Pallas interpret mode:
+// each window (the guard row r of sg1/sg2, the NBWL rows from r*GB of
+// f2/k2q) takes its start from the end when it is negative, then clamps it
+// so that the window fits, each on its own (r = -1 is guard row NBr - 1).
 //
 // Bound on the H100: operations, chiefly the weight product (2*128*C FLOPs
 // per (row, group) for extract, 2*3C*C for the others), then the 2*NBWL
@@ -93,7 +93,7 @@ struct Layout {
   int kg, kp, lda;  // product depth, rounded up to 4, and A's row stride
   int afld;         // AF's row stride
   int pairs, qs, ws, stage;  // offsets within a stage; words per stage
-  int rs, hm, a, af, eq, cnt, total;
+  int rs, hm, a, af, eq, cnt, total;  // rs: G guard rows, then G f2/k2q window starts
 };
 
 __host__ __device__ inline Layout layout(int variant, int rows, int cp, int G, int NBWL,
@@ -111,7 +111,7 @@ __host__ __device__ inline Layout layout(int variant, int rows, int cp, int G, i
   L.ws = L.qs + 3 * rows;
   L.stage = round4(L.ws + (product ? L.kp * cp : 0));
   L.rs = 2 * L.stage;
-  L.hm = L.rs + round4(G);
+  L.hm = L.rs + round4(2 * G);
   L.a = round4(L.hm + rows * L.nwp);
   L.af = L.a + (product ? rows * L.lda : 0);
   L.eq = L.af + (sel ? rows * L.afld : 0);
@@ -120,6 +120,14 @@ __host__ __device__ inline Layout layout(int variant, int rows, int cp, int G, i
   // the product's splits meet in shared memory from A on
   if (product && L.total < L.a + THREADS * (cp + 1)) L.total = L.a + THREADS * (cp + 1);
   return L;
+}
+
+// The start of a `size`-row window of an n-row array, as a dynamic slice
+// reads it in Pallas interpret mode: a negative start counts from the end,
+// then the start is clamped so that the window fits.
+__device__ __forceinline__ int window_start(long long start, int n, int size) {
+  if (start < 0) start += n;
+  return (int)min(max(start, 0LL), (long long)(n - size));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -155,7 +163,7 @@ block_extract_kernel(const int* __restrict__ q, const int* __restrict__ bases,
                      const int* __restrict__ sg1, const int* __restrict__ sg2,
                      const float* __restrict__ k2q, const float* __restrict__ f2,
                      const float* __restrict__ w, float* __restrict__ out,
-                     int tile, int G, int NBr, int NBWL, int H, int C, int Wc) {
+                     int tile, int G, int NBr, int NBP, int NBWL, int H, int C, int Wc) {
   extern __shared__ __align__(16) int smem[];
   constexpr int ROWS = rows_of(VARIANT);
   constexpr bool PRODUCT = VARIANT != OHONLY;
@@ -172,7 +180,7 @@ block_extract_kernel(const int* __restrict__ q, const int* __restrict__ bases,
   const int K = 3 * G, H2 = 2 * H, KQ = 8 * H;
   const int NW = (NBWL + 31) / 32;
   const int FW = feat_width(VARIANT, H, C);
-  const int* rs = smem + L.rs;  // the clamped bases of the tile, per group
+  const int* rs = smem + L.rs;  // the tile's guard row per group, then its window start
   unsigned* hm = reinterpret_cast<unsigned*>(smem + L.hm);
   float* A = reinterpret_cast<float*>(smem + L.a);
   float* AF = reinterpret_cast<float*>(smem + L.af);
@@ -200,8 +208,11 @@ block_extract_kernel(const int* __restrict__ q, const int* __restrict__ bases,
     }
   };
 
-  for (int i = tid; i < G; i += THREADS)
-    smem[L.rs + i] = min(max(bases[(size_t)t * G + i], 0), NBr - 1);
+  for (int i = tid; i < G; i += THREADS) {
+    const int r = bases[(size_t)t * G + i];
+    smem[L.rs + i] = window_start(r, NBr, 1);
+    smem[L.rs + G + i] = window_start((long long)r * GB, NBP, NBWL);
+  }
   // guard pairs past NBWL, never copied: (0, 0) holds no a
   for (int i = 2 * NBWL + tid; i < 64 * NW; i += THREADS) smem[i] = smem[L.stage + i] = 0;
   if constexpr (PRODUCT) {
@@ -263,7 +274,7 @@ block_extract_kernel(const int* __restrict__ q, const int* __restrict__ bases,
         for (int wd = 0; wd < NW; ++wd) cnt += __popc(hm[tid * L.nwp + wd]);
       continue;
     } else {
-      const float* f2w = f2 + (size_t)rs[g] * GB * F;
+      const float* f2w = f2 + (size_t)rs[G + g] * F;
       // gather: (row, p) sums afeat lanes 4p + 32s (s < 4) of the row's hits
       float* dst = VARIANT == EXTRACT ? A : AF;
       const int ld = VARIANT == EXTRACT ? L.lda : L.afld;
@@ -286,7 +297,7 @@ block_extract_kernel(const int* __restrict__ q, const int* __restrict__ bases,
       if constexpr (KEYS) {
         // (row, block j) packs akey[c*2H + j] (c < 4); a quarter outside
         // [0, 255] equals no byte of q. noselect reads block 0 alone.
-        const float* k2w = k2q + (size_t)rs[g] * GB * KQ;
+        const float* k2w = k2q + (size_t)rs[G + g] * KQ;
         const int nj = VARIANT == NOSELECT ? 1 : H2;
         for (int it = tid; it < nrows * nj; it += THREADS) {
           const int row = it / nj, jb = it - row * nj;
@@ -391,7 +402,7 @@ block_extract_kernel(const int* __restrict__ q, const int* __restrict__ bases,
 template <int VARIANT, int CP>
 int launch(cudaStream_t s, const int* q, const int* bases, const int* sg1, const int* sg2,
            const float* k2q, const float* f2, const float* w, float* out, int Mp, int tile,
-           int G, int NBr, int NBWL, int H, int C, int Wc) {
+           int G, int NBr, int NBP, int NBWL, int H, int C, int Wc) {
   constexpr int ROWS = rows_of(VARIANT);
   const long long blocks = (long long)(Mp / tile) * ((tile + ROWS - 1) / ROWS);
   const size_t smem = sizeof(int) * (size_t)layout(VARIANT, ROWS, CP, G, NBWL, H, C).total;
@@ -403,15 +414,15 @@ int launch(cudaStream_t s, const int* q, const int* bases, const int* sg1, const
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<(int)blocks, THREADS, smem, s>>>(q, bases, sg1, sg2, k2q, f2, w, out, tile, G, NBr,
-                                            NBWL, H, C, Wc);
+                                            NBP, NBWL, H, C, Wc);
   return (int)cudaGetLastError();
 }
 
 template <int CP>
 int dispatch(int variant, cudaStream_t s, const int* q, const int* bases, const int* sg1,
              const int* sg2, const float* k2q, const float* f2, const float* w, float* out,
-             int Mp, int tile, int G, int NBr, int NBWL, int H, int C, int Wc) {
-#define BE_ARGS s, q, bases, sg1, sg2, k2q, f2, w, out, Mp, tile, G, NBr, NBWL, H, C, Wc
+             int Mp, int tile, int G, int NBr, int NBP, int NBWL, int H, int C, int Wc) {
+#define BE_ARGS s, q, bases, sg1, sg2, k2q, f2, w, out, Mp, tile, G, NBr, NBP, NBWL, H, C, Wc
   switch (variant) {
     case OHONLY: return launch<OHONLY, 32>(BE_ARGS);
     case EXTRACT: return launch<EXTRACT, CP>(BE_ARGS);
@@ -432,14 +443,15 @@ int dispatch(int variant, cudaStream_t s, const int* q, const int* bases, const 
 extern "C" int block_extract_launch(const int* q, const int* bases, const int* sg1,
                                     const int* sg2, const float* k2q, const float* f2,
                                     const float* w, float* out, int Mp, int tile,
-                                    int G, int NBr, int NBWL, int H, int C, int Wc,
+                                    int G, int NBr, int NBP, int NBWL, int H, int C, int Wc,
                                     int variant, void* stream) {
   if (tile < 1 || Mp < 0 || Mp % tile != 0 || G < 1 || NBr < 1 || NBWL < 1 || H < 1 ||
+      NBP < (NBr - 1) * GB + NBWL ||
       8 * H > 32 || C < 1 || C > CMAX || 2 * H * C > F || Wc < C)
     return (int)cudaErrorInvalidValue;
   if (Mp == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BE_ARGS variant, s, q, bases, sg1, sg2, k2q, f2, w, out, Mp, tile, G, NBr, NBWL, H, C, Wc
+#define BE_ARGS variant, s, q, bases, sg1, sg2, k2q, f2, w, out, Mp, tile, G, NBr, NBP, NBWL, H, C, Wc
   return C > 16 ? dispatch<32>(BE_ARGS) : dispatch<16>(BE_ARGS);
 #undef BE_ARGS
 }

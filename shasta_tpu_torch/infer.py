@@ -10,6 +10,9 @@ scene on one shared trunk.
   out:   one packed (6, 2N) f32 tensor, (B, 6, 2N) for B lanes: track ids,
          used flags, refined scores, keep flags, FN flags and a row of ones
 
+`step_chunk` advances T frames per call (the JAX lax.scan as a Python
+loop over the step) and returns the T packed outputs as one tensor.
+
 Everything after the upload stays on the device; the host reads the
 packed outputs only when a StepOutput field is accessed. The port needs
 no coverage flags or safe replay: its kernels gather by index and are
@@ -30,7 +33,6 @@ from .device import resolve_device, upload
 from .models.affinity import AffinityNet
 from .models.shasta import ShastaModel, trunk_bev
 from .multiclass import stack_class_heads
-from .plans import attach_plans, frame_plans
 from .tracker import scan_tracker as st
 from .tracker.decision import apply_decision_rules
 from .tracker.pub_tracker import (NUSCENE_CLS_VELOCITY_ERROR,
@@ -58,7 +60,8 @@ def default_tracker_params(max_age: int = 4, merged: bool = True,
 
 class StepOutput:
     """Per-frame outputs around one packed (6, 2N) device tensor, or
-    (B, 6, 2N) for B lanes (each field then has a leading (B,) axis). Det
+    (B, 6, 2N) for B lanes, (T, 6, 2N) or (T, B, 6, 2N) for a chunk (each
+    field then has the leading axes). Det
     rows [0, N) are the current frame's detections, rows [N, 2N) the
     FN-propagated prev boxes. The device-to-host copy starts with
     `start_fetch` (asynchronous, into pinned memory) or on first field
@@ -148,19 +151,31 @@ def _packed(tid, used, ref, keep, fn) -> torch.Tensor:
                         torch.ones_like(ref)], dim=-2)
 
 
+def _frame_on(frame: dict, dev) -> dict:
+    """The frame's arrays the step reads (FRAME_KEYS and any plan_*), as
+    tensors on dev."""
+    return {k: torch.as_tensor(v, device=dev) for k, v in frame.items()
+            if k in FRAME_KEYS or k.startswith("plan_")}
+
+
 class ScenePipeline:
-    """Per-frame scene inference for one class model, on the model's device."""
+    """Per-frame scene inference for one class model, on the model's device.
+
+    A frame with plan_* arrays (shasta_tpu_torch/plans.py) runs the planned
+    trunk (11 rulebook_conv + 10 keyed_conv); a frame without them builds
+    every index on the device (sorted_lookup + 21 gather_conv), and nothing
+    is planned on the host."""
 
     def __init__(self, model: ShastaModel, cls_id: int,
                  params: st.TrackerParams | None = None, fp_thresh: float = 0.7,
-                 decision_thresh: float = 0.5):
+                 decision_thresh: float = 0.5, track_cap: int | None = None):
         self.model, self.cls_id = model, cls_id
         self.device = model.device
         self.params = params or default_tracker_params(device=self.device)
         self.fp_thresh, self.decision_thresh = fp_thresh, decision_thresh
         N = model.cfg.max_obj
         # det-major slots hold 2N rows (curr dets + FN injections)
-        self.cap = 2 * N * (self.params.max_age + 1)
+        self.cap = track_cap or 2 * N * (self.params.max_age + 1)
         self.reset()
 
     def reset(self):
@@ -174,16 +189,27 @@ class ScenePipeline:
 
     def step_frame(self, frame: dict, n_curr: int, time_lag: float) -> StepOutput:
         """frame: fixed-shape single-frame batch (B=1) of numpy arrays or
-        tensors; plan_* arrays are built on the host when absent."""
-        if not any(k.startswith("plan_") for k in frame):
-            frame = attach_plans(frame, frame_plans(
-                np.asarray(torch.as_tensor(frame["coordinates"]).cpu())[0],
-                np.asarray(torch.as_tensor(frame["voxels_valid"]).cpu())[0],
-                self.model.cfg))
-        dev, N = self.device, self.model.cfg.max_obj
-        f = {k: torch.as_tensor(v, device=dev) for k, v in frame.items()
-             if k in FRAME_KEYS or k.startswith("plan_")}
-        lag = upload(np.float32(time_lag), dev)
+        tensors, with or without plan_* arrays."""
+        lag = upload(np.float32(time_lag), self.device)
+        return StepOutput(self._step(_frame_on(frame, self.device), int(n_curr), lag),
+                          self.model.cfg.max_obj)
+
+    def step_chunk(self, frames: dict, n_currs, time_lags) -> StepOutput:
+        """T consecutive frames of one scene in one call: frames' arrays
+        carry a leading (T,) axis over the step_frame shapes (stacked plan_*
+        arrays too, or none); n_currs and time_lags have length T. The carry
+        stays on the device across the T steps (the JAX lax.scan), and the
+        (T, 6, 2N) outputs come back as one StepOutput, fetched once."""
+        f = _frame_on(frames, self.device)
+        lags = upload(np.asarray(time_lags, np.float32), self.device)
+        packed = [self._step({k: v[t] for k, v in f.items()}, int(n), lags[t])
+                  for t, n in enumerate(n_currs)]
+        return StepOutput(torch.stack(packed), self.model.cfg.max_obj)
+
+    def _step(self, f: dict, n_curr: int, lag: torch.Tensor) -> torch.Tensor:
+        """One step on device tensors; advances the carry and returns the
+        packed (6, 2N) outputs."""
+        N = self.model.cfg.max_obj
         with torch.no_grad():
             with record_function("step.trunk"):
                 curr_feat = self.model.frame_features(f)
@@ -191,7 +217,7 @@ class ScenePipeline:
                 m1, m2 = self.model.affinity_step(self._prev_boxes, f["det_boxes"],
                                                   self._prev_feat, curr_feat)
             with record_function("step.decide_track"):
-                dec = apply_decision_rules(m1[0], m2[0], self._n_prev, int(n_curr),
+                dec = apply_decision_rules(m1[0], m2[0], self._n_prev, n_curr,
                                            fp_thresh=self.fp_thresh,
                                            decision_thresh=self.decision_thresh)
                 # retroactive ShaSTA dead flags: dec.dead indexes the prev
@@ -207,10 +233,10 @@ class ScenePipeline:
             packed = _packed(tid, used, ref, dec.keep, dec.fn)
         self._prev_feat = curr_feat
         self._prev_boxes = f["det_boxes"]
-        self._n_prev = int(n_curr)
+        self._n_prev = n_curr
         self._table = table
         self._id_count = id_count
-        return StepOutput(packed, N)
+        return packed
 
 
 class BatchedScenePipeline:
@@ -229,12 +255,12 @@ class BatchedScenePipeline:
 
     def __init__(self, model: ShastaModel, cls_id: int, batch: int,
                  params: st.TrackerParams | None = None, fp_thresh: float = 0.7,
-                 decision_thresh: float = 0.5):
+                 decision_thresh: float = 0.5, track_cap: int | None = None):
         self.model, self.cls_id, self.batch = model, cls_id, batch
         self.device = model.device
         self.params = params or default_tracker_params(device=self.device)
         self.fp_thresh, self.decision_thresh = fp_thresh, decision_thresh
-        self.cap = 2 * model.cfg.max_obj * (self.params.max_age + 1)
+        self.cap = track_cap or 2 * model.cfg.max_obj * (self.params.max_age + 1)
         self.reset()
 
     def reset(self):
@@ -247,18 +273,41 @@ class BatchedScenePipeline:
                                        for t in st.TrackTable.empty(self.cap, dev)))
         self._id_counts = torch.arange(B, dtype=torch.int32, device=dev) * 1_000_000
 
+    def _scalars(self, n_currs, resets, time_lags) -> np.ndarray:
+        """(T, 4, B) f32 per-step lane scalars [reset, n_prev, n_curr, lag]
+        for T steps from the carried n_prev; advances the host-side n_prev."""
+        n_currs = np.asarray(n_currs, np.int64)
+        resets = np.asarray(resets, bool)
+        rows = []
+        for n_curr, reset, lags in zip(n_currs, resets, np.asarray(time_lags)):
+            rows.append(np.stack([reset, np.where(reset, 0, self._n_prev), n_curr, lags]))
+            self._n_prev = n_curr
+        return np.stack(rows).astype(np.float32)
+
     def step_frames(self, frame: dict, n_curr, reset, time_lags) -> StepOutput:
         """frame: batched arrays (B, ...) of numpy arrays or tensors; n_curr
         (B,) real det counts; reset (B,) new-scene flags; time_lags (B,).
         Returns a StepOutput whose fields have a leading (B,) axis."""
-        dev, N, B = self.device, self.model.cfg.max_obj, self.batch
-        f = {k: torch.as_tensor(v, device=dev) for k, v in frame.items() if k in FRAME_KEYS}
-        reset = np.asarray(reset, bool)
-        n_curr = np.asarray(n_curr, np.int64)
-        n_prev = np.where(reset, 0, self._n_prev)
         # the per-lane scalars in one host-to-device copy
-        sc = upload(np.stack([reset, n_prev, n_curr, np.asarray(time_lags)])
-                    .astype(np.float32), dev)
+        sc = upload(self._scalars([n_curr], [reset], [time_lags])[0], self.device)
+        return StepOutput(self._step(_frame_on(frame, self.device), sc),
+                          self.model.cfg.max_obj)
+
+    def step_chunk(self, frames: dict, n_currs, resets, time_lags) -> StepOutput:
+        """All B lanes through T frames in one call: frames' arrays are
+        (T, B, ...); n_currs, resets and time_lags (T, B). The carry stays
+        on the device across the T steps; the (T, B, 6, 2N) outputs come
+        back as one StepOutput, fetched once."""
+        f = _frame_on(frames, self.device)
+        sc = upload(self._scalars(n_currs, resets, time_lags), self.device)
+        packed = [self._step({k: v[t] for k, v in f.items()}, sc[t])
+                  for t in range(sc.shape[0])]
+        return StepOutput(torch.stack(packed), self.model.cfg.max_obj)
+
+    def _step(self, f: dict, sc: torch.Tensor) -> torch.Tensor:
+        """One step on device tensors, sc the (4, B) lane scalars; advances
+        the device carry and returns the packed (B, 6, 2N) outputs."""
+        N, B = self.model.cfg.max_obj, self.batch
         rz = sc[0] > 0.5
         with torch.no_grad():
             prev_feat = torch.where(rz[:, None, None], 0.0, self._prev_feat)
@@ -286,10 +335,9 @@ class BatchedScenePipeline:
             packed = _packed(tid, used, ref, dec.keep, dec.fn)
         self._prev_feat = curr_feat
         self._prev_boxes = f["det_boxes"]
-        self._n_prev = n_curr
         self._tables = tables
         self._id_counts = id_counts
-        return StepOutput(packed, N)
+        return packed
 
 
 class _ClassStepOutput(StepOutput):
@@ -334,7 +382,7 @@ class MultiClassScenePipeline:
     """Shared-trunk multi-class serving of one scene, on one device.
 
     The released per-class models share one frozen trunk, so the trunk runs
-    once per frame (at B=1 with host plans, as ScenePipeline); the class
+    once per frame (at B=1, planned or not, as ScenePipeline); the class
     heads, padded to the widest max_obj by the exact transform of
     multiclass.py, run as one class-stacked head; decisions and tracker
     steps take the classes as a leading lane axis. Each class tracks in its
@@ -388,17 +436,12 @@ class MultiClassScenePipeline:
     def dispatch_frame(self, frame: dict, class_boxes: dict, time_lag: float):
         """Enqueue one frame's step; returns (the packed output of all
         classes, the names present) without reading anything back. frame:
-        the B=1 voxel arrays, with plan_* arrays or without (then they are
-        built on the host); class_boxes: {name: (det boxes (1, N_c, 11),
+        the B=1 voxel arrays, with plan_* arrays (the planned trunk) or
+        without (every index built on the device); class_boxes: {name: (det boxes (1, N_c, 11),
         n_curr)} as host arrays. The tracker state has advanced on return."""
         cfg = self.trunk.cfg
-        if not any(k.startswith("plan_") for k in frame):
-            frame = attach_plans(frame, frame_plans(
-                np.asarray(torch.as_tensor(frame["coordinates"]).cpu())[0],
-                np.asarray(torch.as_tensor(frame["voxels_valid"]).cpu())[0], cfg))
         dev, C, N = self.device, len(self._names), self.n_max
-        f = {k: torch.as_tensor(v, device=dev) for k, v in frame.items()
-             if k in FRAME_KEYS or k.startswith("plan_")}
+        f = _frame_on(frame, dev)
         boxes = np.zeros((C, N, 11), np.float32)
         n_curr = np.zeros((C,), np.float32)
         skip = np.ones((C,), np.float32)

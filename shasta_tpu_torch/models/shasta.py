@@ -1,5 +1,5 @@
-"""ShaSTA model for single-frame serving: the port of
-shasta_tpu/models/shasta.py (ShastaConfig, bev_single, frame_features,
+"""ShaSTA model: the port of shasta_tpu/models/shasta.py (ShastaConfig,
+bev_maps and the two-frame forward, bev_single, frame_features,
 affinity_step).
 
 Inputs are fixed-shape: detections padded to max_obj rows of 11 features
@@ -50,7 +50,10 @@ class ShastaModel(AffinityNet):
     """The BEV trunk plus the affinity head. As in det3d's Shasta, the
     head's modules sit at the top level (aug_shape.*, fuse_shape.*, aff.*,
     ...) beside backbone.*, neck.* and shared_conv.*, so a reference
-    state_dict loads as is; calling the model runs the affinity head."""
+    state_dict loads as is. Calling the model runs the two-frame forward
+    (the JAX __call__); `head` runs the affinity head alone."""
+
+    head = AffinityNet.forward
 
     def __init__(self, cfg: ShastaConfig = ShastaConfig(), device=None):
         super().__init__(cfg.max_obj, cfg.num_feats, cfg.num_point,
@@ -64,6 +67,42 @@ class ShastaModel(AffinityNet):
         self.device = resolve_device(device)
         self.to(self.device).eval()
         self.requires_grad_(False)
+
+    def bev_maps(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """Shared-conv BEV maps (B, H, W, 64) of the curr and the prev frame
+        of B frame pairs, run through the trunk as ONE sparse batch of 2B
+        (curr samples 0..B-1, prev samples B..2B-1), every index built on
+        the device. batch: voxels (B, V, P, 5), num_points (B, V),
+        coordinates (B, V, 3) [z, y, x], voxels_valid (B, V) and their
+        prev_* mirrors, tensors on the model's device."""
+        cfg = self.cfg
+        B = batch["voxels"].shape[0]
+        parts = [_voxel_rows(cfg, *(batch[p + k] for k in
+                                    ("voxels", "num_points", "coordinates", "voxels_valid")),
+                             b_off=i * B) for i, p in enumerate(("", "prev_"))]
+        st = sp.SparseTensor(*(torch.cat(t) for t in zip(*parts)), tuple(cfg.grid_shape),
+                             2 * B)
+        bev = _trunk_from_sparse(self.backbone, self.neck, self.shared_conv, st, None)
+        return bev[:B], bev[B:]
+
+    def forward(self, batch: dict):
+        """The two-frame forward (the JAX ShastaModel.__call__): both BEV
+        maps from `bev_maps`, each frame's boxes sampled on its own map, then
+        the affinity head -> (matched1 (B, N, N+2), matched2 (B, N+2, N)).
+        batch: the `bev_maps` arrays plus det_boxes and prev_det_boxes
+        (B, N, 11), numpy arrays or tensors."""
+        c = self.cfg
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        prev_boxes = batch["prev_det_boxes"][:, :, :7]
+        curr_boxes = batch["det_boxes"][:, :, :7]
+        bev, prev_bev = self.bev_maps(batch)
+        curr_feat = sample_bev_features(bev, box_points_5(curr_boxes), c.pc_start,
+                                        c.voxel_size, c.out_stride)
+        prev_feat = sample_bev_features(prev_bev, box_points_5(prev_boxes), c.pc_start,
+                                        c.voxel_size, c.out_stride)
+        return self.head(prev_boxes, curr_boxes, batch["det_boxes"][:, :, 7:9],
+                         batch["det_boxes"][:, :, 9:10], prev_feat.float(),
+                         curr_feat.float())
 
     def bev_single(self, frame: dict) -> torch.Tensor:
         """Shared-conv BEV map (B, H, W, 64) of `trunk_bev`."""
@@ -79,10 +118,31 @@ class ShastaModel(AffinityNet):
 
     def affinity_step(self, prev_boxes11, curr_boxes11, prev_feat, curr_feat):
         """Affinity matrices from boxes + (possibly carried) descriptors."""
-        return self(
+        return self.head(
             prev_boxes11[:, :, :7], curr_boxes11[:, :, :7],
             curr_boxes11[:, :, 7:9], curr_boxes11[:, :, 9:10],
             prev_feat.float(), curr_feat.float())
+
+
+def _voxel_rows(cfg: ShastaConfig, voxels, num_points, coordinates, valid, b_off: int = 0):
+    """VFE features (B*V, C), coords (B*V, 4) [b_off + b, z, y, x] and the
+    validity (B*V,) of B frames' voxel arrays: row b*V + v is frame b's."""
+    B, V = voxels.shape[:2]
+    feats = voxel_mean_vfe(voxels.reshape(B * V, *voxels.shape[2:]),
+                           num_points.reshape(B * V), cfg.num_input_features)
+    bidx = (torch.arange(B, dtype=torch.int32, device=feats.device) + b_off
+            ).repeat_interleave(V)
+    coords = torch.cat([bidx[:, None], coordinates.reshape(B * V, 3).to(torch.int32)], dim=1)
+    return feats, coords, valid.reshape(B * V)
+
+
+def _trunk_from_sparse(backbone: SparseBackbone, neck: RPN, shared_conv: SharedConv,
+                       st: sp.SparseTensor, plans: dict | None) -> torch.Tensor:
+    with record_function("step.sparse_trunk"):
+        bev = backbone(st, plans)
+    with record_function("step.neck"):
+        bev = shared_conv(neck(bev))
+    return bev.permute(0, 2, 3, 1)
 
 
 def trunk_bev(cfg: ShastaConfig, backbone: SparseBackbone, neck: RPN,
@@ -92,20 +152,12 @@ def trunk_bev(cfg: ShastaConfig, backbone: SparseBackbone, neck: RPN,
     or the one trunk the multi-class step shares). frame: voxels (B, V, P,
     5), num_points (B, V), coordinates (B, V, 3) [z, y, x], voxels_valid
     (B, V), all tensors on the trunk's device; optionally, at B=1, the
-    plan_* arrays of shasta_tpu_torch/plans.py. Row b*V + v carries batch
-    index b."""
-    B, V = frame["voxels"].shape[:2]
+    plan_* arrays of shasta_tpu_torch/plans.py (without them every index
+    is built on the device). Row b*V + v carries batch index b."""
+    B = frame["voxels"].shape[0]
     plans = {k[5:]: v for k, v in frame.items() if k.startswith("plan_")}
     assert B == 1 or not plans, "host plans serve the B=1 step"
-    feats = voxel_mean_vfe(frame["voxels"].reshape(B * V, *frame["voxels"].shape[2:]),
-                           frame["num_points"].reshape(B * V), cfg.num_input_features)
-    bidx = torch.arange(B, dtype=torch.int32, device=feats.device).repeat_interleave(V)
-    coords = torch.cat([bidx[:, None],
-                        frame["coordinates"].reshape(B * V, 3).to(torch.int32)], dim=1)
-    st = sp.SparseTensor(feats, coords, frame["voxels_valid"].reshape(B * V),
+    st = sp.SparseTensor(*_voxel_rows(cfg, frame["voxels"], frame["num_points"],
+                                      frame["coordinates"], frame["voxels_valid"]),
                          tuple(cfg.grid_shape), B)
-    with record_function("step.sparse_trunk"):
-        bev = backbone(st, plans or None)
-    with record_function("step.neck"):
-        bev = shared_conv(neck(bev))
-    return bev.permute(0, 2, 3, 1)
+    return _trunk_from_sparse(backbone, neck, shared_conv, st, plans or None)

@@ -38,23 +38,33 @@ F = 128  # feature lanes of f2
 VARIANTS = ("ohonly", "extract", "nokeys", "noselect", "full")
 
 
+def window_start(start: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    """The start of a `size`-row window of an n-row array as the TPU
+    kernel's dynamic slices read it (Pallas interpret mode): a negative
+    start counts from the end, then the start is clamped so that the
+    window fits."""
+    return torch.where(start < 0, start + n, start).clamp(0, n - size)
+
+
 def block_extract_plain(q, bases, sg1, sg2, k2q, f2, w, *, H: int, C: int,
                         tile: int, variant: str) -> torch.Tensor:
     """The same function in PyTorch: the window find as a mask, the sums of
     the hit rows as one batched product per group over each tile's window."""
     Mp, K = q.shape
-    G, T, NBWL = K // 3, Mp // tile, sg1.shape[1]
+    G, T, (NBr, NBWL) = K // 3, Mp // tile, sg1.shape
     H2 = 2 * H
     win = torch.arange(NBWL, device=q.device)
     out = torch.zeros((Mp, C), dtype=torch.float32, device=q.device)
     for g in range(G):
-        r = bases[:, g].long().clamp(0, sg1.shape[0] - 1)  # (T,)
+        base = bases[:, g].long()  # (T,)
+        r = window_start(base, NBr, 1)  # the guard row
         a = (q[:, 3 * g + 1] - 1).view(T, tile, 1)
         oh = ((a > sg1[r][:, None]) & ~(a > sg2[r][:, None])).float()  # (T, tile, NBWL)
         if variant == "ohonly":
             out += oh.sum(2).reshape(Mp, 1)
             continue
-        blk = r[:, None] * GB + win  # (T, NBWL)
+        # the f2/k2q window's start is clamped on its own
+        blk = window_start(base * GB, f2.shape[0], NBWL)[:, None] + win  # (T, NBWL)
         afeat = torch.bmm(oh, f2[blk]).reshape(Mp, F)
         if variant == "extract":
             out += afeat @ w[g, 0, :, :C]
@@ -112,7 +122,7 @@ def _launch_fn():
     from .build import library
 
     fn = library("block_extract").block_extract_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -132,7 +142,7 @@ def block_extract(q: torch.Tensor, bases: torch.Tensor, sg1: torch.Tensor,
     out = torch.empty((Mp, C), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launch_fn()(*(_ptr(t) for t in (q, bases, sg1, sg2, k2q, f2, w, out)),
-                       Mp, tile, K // 3, NBr, NBWL, H, C, w.shape[3],
+                       Mp, tile, K // 3, NBr, f2.shape[0], NBWL, H, C, w.shape[3],
                        VARIANTS.index(variant), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"block_extract launch failed: CUDA error {err}")

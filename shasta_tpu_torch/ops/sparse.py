@@ -201,14 +201,13 @@ def _strided_candidates(st: SparseTensor, kernel, stride, padding):
     return torch.where(ok, cand, SENTINEL).to(torch.int32).reshape(-1), out_shape
 
 
-def build_strided_plan(st: SparseTensor, kernel, stride, padding, max_out: int,
-                       table) -> StridedPlan:
-    """The exact spconv output set of a strided conv and its gather index
-    (ops/sparse.py:325-543, global layout): candidate keys, sort, head
-    flags; slot j takes the first sorted position where cumsum(head) ==
-    j + 1 (an identity-mode lookup), so the set is ascending, deduplicated
-    and truncated to the max_out smallest keys."""
-    cand, out_shape = _strided_candidates(st, kernel, stride, padding)
+def strided_output_set(st: SparseTensor, kernel, stride, padding, max_out: int):
+    """The exact spconv output set of a strided conv (ops/sparse.py:325-543,
+    global layout) -> (coords (max_out, 4), valid, out_shape): candidate
+    keys, sort, head flags; slot j takes the first sorted position where
+    cumsum(head) == j + 1 (an identity-mode lookup), so the set is
+    ascending, deduplicated and truncated to the max_out smallest keys."""
+    cand, _ = _strided_candidates(st, kernel, stride, padding)
     s = torch.sort(cand).values
     head = (s != torch.cat([s.new_full((1,), -1), s[:-1]])) & (s != SENTINEL)
     ch = torch.cumsum(head, 0, dtype=torch.int32)
@@ -216,8 +215,14 @@ def build_strided_plan(st: SparseTensor, kernel, stride, padding, max_out: int,
     pos = sorted_lookup(ch, None, slots, "identity")[:, 0].long()
     VC = s.shape[0]
     out_keys = torch.where(pos < VC, s[pos.clamp(max=VC - 1)], SENTINEL)
-    coords, valid, _ = decode_strided_keys(out_keys, st.shape, kernel, stride,
-                                           padding, st.batch_size)
+    return decode_strided_keys(out_keys, st.shape, kernel, stride, padding, st.batch_size)
+
+
+def build_strided_plan(st: SparseTensor, kernel, stride, padding, max_out: int,
+                       table) -> StridedPlan:
+    """`strided_output_set` and its gather index over `table`, the input's
+    (sorted keys, perm)."""
+    coords, valid, out_shape = strided_output_set(st, kernel, stride, padding, max_out)
     q = strided_queries(coords, valid, st.shape, kernel, stride, padding)
     if kernel[2] == 3:
         gather = _dx_triples(q, table, st.coords.shape[0])

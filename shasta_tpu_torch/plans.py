@@ -144,7 +144,10 @@ def frame_plans(coords3: np.ndarray, valid: np.ndarray, cfg) -> dict:
     """Plans for one B=1 frame. coords3 (V, 3) int [z, y, x] in upload
     order, valid (V,) bool, cfg with grid_shape and the stage caps.
     Returns the arrays the backbone reads, keyed without the "plan_"
-    prefix that `attach_plans` adds."""
+    prefix that `attach_plans` adds. `frame_plans.calls` counts the calls
+    (no serving step makes one: a frame without plans runs the unplanned
+    trunk)."""
+    frame_plans.calls += 1
     V = coords3.shape[0]
     coords = np.concatenate(
         [np.zeros((V, 1), np.int32), coords3.astype(np.int32)], axis=1)
@@ -179,6 +182,9 @@ def frame_plans(coords3: np.ndarray, valid: np.ndarray, cfg) -> dict:
         c3, v3, (3, 1, 1), (2, 1, 1), (0, 0, 0), cfg.cap_extra, d3_shape, 1)
     out["ex_keys"] = ex_keys.astype(np.int32)
     return out
+
+
+frame_plans.calls = 0
 
 
 def attach_plans(frame: dict, plans: dict) -> dict:

@@ -175,6 +175,29 @@ def measure(shape_cases: list[dict], outs: dict, iters: int) -> list[dict]:
     return recs
 
 
+def negative_bases(shape_cases: list[dict]) -> list[dict]:
+    """Bases below 0, as interpret mode reads them (block_extract_plain's
+    `window_start`): per shape, variant and r in (-1, -2, -NBr), the first
+    and the last tile take base r; block_extract against the plain version
+    at atol/rtol 1e-5. One record per case: shape, variant, r, max_abs_err,
+    ok, nonzero_rows."""
+    recs = []
+    for c in shape_cases:
+        kw = dict(H=c["H"], C=c["C"], tile=c["tile"])
+        NBr = c["args"]["sg1"].shape[0]
+        for r in (-1, -2, -NBr):
+            args = dict(c["args"], bases=c["args"]["bases"].clone())
+            args["bases"][[0, -1]] = r
+            for v in VARIANTS:
+                got = block_extract(**args, **kw, variant=v)
+                want = block_extract_plain(**args, **kw, variant=v)
+                recs.append(dict(shape=c["name"], variant=v, r=r,
+                                 max_abs_err=float((got - want).abs().max()),
+                                 ok=bool(torch.allclose(got, want, atol=ATOL, rtol=RTOL)),
+                                 nonzero_rows=int((want != 0).any(1).sum())))
+    return recs
+
+
 ROWS_LINE = "return variant == OHONLY ? 128 : 64;"  # csrc/block_extract.cu rows_of
 
 
@@ -192,7 +215,7 @@ def rows_study(shape_cases: list[dict], iters: int) -> list[dict]:
     lib = build.build_variant("block_extract", "block_extract_rows_swapped", (
         "block_extract.cu", ROWS_LINE, "return variant == OHONLY ? 64 : 128;"))
     fn = lib.block_extract_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     recs = []
@@ -205,8 +228,8 @@ def rows_study(shape_cases: list[dict], iters: int) -> list[dict]:
             out = torch.empty_like(want)
             ins = [a[k] for k in ("q", "bases", "sg1", "sg2", "k2q", "f2", "w")]
             ptrs = [_ptr(t) for t in (*ins, out)]
-            dims = (a["q"].shape[0], c["tile"], a["q"].shape[1] // 3, NBr, NBWL, c["H"], c["C"],
-                    a["w"].shape[3], VARIANTS.index(v))
+            dims = (a["q"].shape[0], c["tile"], a["q"].shape[1] // 3, NBr, a["f2"].shape[0],
+                    NBWL, c["H"], c["C"], a["w"].shape[3], VARIANTS.index(v))
 
             def swapped():
                 err = fn(*ptrs, *dims, stream)

@@ -1,12 +1,14 @@
 """Where the time of one serving step goes, on the card.
 
-    python -m shasta_tpu_torch.profile_step [--frames 10] [--lanes 1] [--classes 0]
+    python -m shasta_tpu_torch.profile_step [--frames 10] [--lanes 1] [--no-plans]
+                                            [--classes 0]
 
 Sets up the bench-scale car frame (`car_setup`, shared with chip_smoke.py:
 V=120k voxels per lane, max_obj 90, 60 real dets, caps 50k/25k/12k/12k
 per lane, bf16 trunk, random weights from a numpy seed), warms up, then
 profiles `--frames` steps with torch.profiler: ScenePipeline.step_frame
-with host plans at --lanes 1, BatchedScenePipeline.step_frames over
+with host plans at --lanes 1 (without them, every index built on the
+card, with --no-plans), BatchedScenePipeline.step_frames over
 --lanes scene lanes otherwise (bench.py --lanes N), and with --classes K
 the fused multi-class step (MultiClassScenePipeline, `multiclass_setup`)
 over the first K classes of NUSC_MAX_OBJ. Prints, per step:
@@ -142,6 +144,11 @@ def multiclass_setup(dev, classes: int = 7):
     return pipe, frame, class_boxes
 
 
+def without_plans(frame: dict) -> dict:
+    """The frame without its plan_* arrays (the B=1 unplanned step)."""
+    return {k: v for k, v in frame.items() if not k.startswith("plan_")}
+
+
 def step_fn(model, frame, lanes: int):
     """A fresh pipeline's step on `frame` at N_DETS real dets, lag 0.5:
     ScenePipeline at one lane, BatchedScenePipeline (reset on its first
@@ -175,14 +182,50 @@ def sync_calls(step) -> list[str]:
     return [str(w.message) for w in caught]
 
 
+def profile_steps(step, frames: int) -> dict:
+    """`frames` calls of `step()` under torch.profiler after the caller's
+    warm-up -> {wall_ms, busy_ms per step (profiler on), spans {name: (host
+    ms, device-range ms) per step}, kernels [(device ms, launches per step,
+    name)] by device time, launches: device kernels and copies per step}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            out = step()
+        out.tid
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / frames * 1e3
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # device-side events only: CPU ops also carry the time of the kernels
+    # they launch, and record_function spans the range of theirs
+    kernels = [e for e in events if e.device_type == cuda and not e.is_user_annotation
+               and e.self_device_time_total > 0]
+    device_span = {e.key: e.device_time_total for e in events
+                   if e.is_user_annotation and e.device_type == cuda}
+    return dict(
+        wall_ms=wall,
+        busy_ms=sum(e.self_device_time_total for e in kernels) / 1e3 / frames,
+        spans={e.key: (e.cpu_time_total / 1e3 / frames,
+                       device_span.get(e.key, 0) / 1e3 / frames)
+               for e in events if e.key.startswith("step.") and e.device_type != cuda},
+        kernels=[(e.self_device_time_total / 1e3 / frames, e.count / frames, e.key)
+                 for e in sorted(kernels, key=lambda e: -e.self_device_time_total)],
+        launches=sum(e.count for e in kernels) / frames)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--lanes", type=int, default=1)
+    ap.add_argument("--no-plans", action="store_true",
+                    help="at one lane, step frames without host plans (every index "
+                         "built on the card)")
     ap.add_argument("--classes", type=int, default=0,
                     help="profile the fused multi-class step over this many classes")
     args = ap.parse_args()
-    from torch.profiler import ProfilerActivity, profile
 
     dev = resolve_device("cuda")
     if args.classes:
@@ -192,43 +235,26 @@ def main() -> None:
             return pipe.dispatch_frame(frame, class_boxes, 0.5)[0]
     else:
         _, _, _, model, frame = car_setup(dev, lanes=args.lanes)
+        if args.no_plans:
+            frame = without_plans(frame)
         step = step_fn(model, frame, args.lanes)
     for _ in range(3):
         step().tid
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.frames):
-            out = step()
-        out.tid
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / args.frames * 1e3
-    events = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    # device-side events only: CPU ops also carry the time of the kernels
-    # they launch, and record_function spans the range of theirs
-    kernels = [e for e in events if e.device_type == cuda and not e.is_user_annotation
-               and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / args.frames
-    print(f"per step: host wall {wall:.3f} ms, device busy {busy:.3f} ms "
-          f"({100 * busy / wall:.1f}% of the wall; profiler on)")
+    p = profile_steps(step, args.frames)
+    print(f"per step: host wall {p['wall_ms']:.3f} ms, device busy {p['busy_ms']:.3f} ms "
+          f"({100 * p['busy_ms'] / p['wall_ms']:.1f}% of the wall; profiler on)")
     print("spans (ms per step: host, device range):")
-    device_span = {e.key: e.device_time_total for e in events
-                   if e.is_user_annotation and e.device_type == cuda}
-    for e in events:
-        if e.key.startswith("step.") and e.device_type != cuda:
-            print(f"  {e.key:18s} {e.cpu_time_total / 1e3 / args.frames:9.3f} "
-                  f"{device_span.get(e.key, 0) / 1e3 / args.frames:9.3f}")
+    for key, (host, device) in p["spans"].items():
+        print(f"  {key:18s} {host:9.3f} {device:9.3f}")
     print("kernels by device time (ms per step, launches per step):")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]:
-        print(f"  {e.self_device_time_total / 1e3 / args.frames:8.4f}  "
-              f"{e.count / args.frames:6.1f}  {e.key[:90]}")
-    n_launch = sum(e.count for e in kernels) / args.frames
-    print(f"device kernels and copies per step: {n_launch:.0f}")
+    for ms, n, key in p["kernels"][:25]:
+        print(f"  {ms:8.4f}  {n:6.1f}  {key[:90]}")
+    print(f"device kernels and copies per step: {p['launches']:.0f}")
     syncs = sync_calls(step)
     print(f"host-device synchronisations in one step: {len(syncs)}")
     for msg in sorted(set(syncs)):
         print(f"  {syncs.count(msg)}x {msg[:100]}")
+
 
 if __name__ == "__main__":
     main()

@@ -135,7 +135,7 @@ def test_affinity_matches(small, rng, n_real):
         jnp.asarray(pb[..., :7]), jnp.asarray(cb[..., :7]), jnp.asarray(cb[..., 7:9]),
         jnp.asarray(cb[..., 9:10]), jnp.asarray(pf), jnp.asarray(cf), n_real=n_real)
     with torch.no_grad():
-        got = model(*(torch.from_numpy(a) for a in (
+        got = model.head(*(torch.from_numpy(a) for a in (
             pb[..., :7], cb[..., :7], cb[..., 7:9], cb[..., 9:10], pf, cf)),
             n_real=n_real)
     for g, w in zip(got, want):

@@ -4,7 +4,8 @@
 - a padded head equals the original and the class-stacked head equals the
   per-class heads at 1e-5 (the cases of tests/test_multiclass_vmap.py);
 - `MultiClassScenePipeline` equals the JAX one (its XLA path,
-  use_pallas_gather=False) on the configuration of
+  use_pallas_gather=False), on frames with host plans attached and
+  without (then no host planner runs), on the configuration of
   tests/test_multiclass_pipeline.py:12-16 with 3 classes (car 6,
   pedestrian 6, bus 5) over 3 frames, bus absent on the second: ids, used,
   keep and FN exact, refined scores to 1e-4; and each class present on
@@ -29,6 +30,7 @@ from shasta_tpu_torch.infer import MultiClassScenePipeline, ScenePipeline
 from shasta_tpu_torch.models import AffinityNet, ShastaConfig, ShastaModel
 from shasta_tpu_torch.multiclass import (head_state, pad_affinity_params, pad_rows,
                                          stack_class_heads)
+from shasta_tpu_torch.plans import attach_plans, frame_plans
 from shasta_tpu_torch.tracker.pub_tracker import NUSCENES_TRACKING_NAMES
 
 MINI = dict(grid_shape=(41, 48, 48), pc_start=(-3.0, -3.0), cap_conv2=512,
@@ -100,7 +102,7 @@ def test_padded_head_equals_the_original(rng):
     padded = AffinityNet(max_obj=9)
     padded.load_state_dict(pad_affinity_params(head_state(small.state_dict()), 5, 9))
     inputs = _head_inputs(rng, 5)
-    m1, m2 = _run(small, inputs)
+    m1, m2 = _run(small.head, inputs)
     m1p, m2p = _run(padded, [pad_rows(a, 9) for a in inputs], n_real=5)
     _assert_real_slots_equal(m1p[0], m2p[0], m1[0], m2[0], 5, 9)
 
@@ -119,7 +121,7 @@ def test_class_stacked_head_equals_the_per_class_heads(rng):
     batched = [np.concatenate([pad_rows(inputs[n][j], 9) for n in names]) for j in range(6)]
     m1s, m2s = _run(head, batched, n_real=n_real)
     for i, (n, w) in enumerate(zip(names, widths)):
-        m1, m2 = _run(models[n], inputs[n])
+        m1, m2 = _run(models[n].head, inputs[n])
         _assert_real_slots_equal(m1s[i], m2s[i], m1[0], m2[0], w, 9)
 
 
@@ -185,13 +187,20 @@ def multiclass():
     return models, jheads
 
 
-def test_multiclass_pipeline_matches_jax(multiclass):
+@pytest.mark.parametrize("plans", ["attached", "none"])
+def test_multiclass_pipeline_matches_jax(multiclass, plans):
     models, jheads = multiclass
     pipe = MultiClassScenePipeline(models, trunk_key="car", device="cpu")
     jpipe = JMulti(class_heads=jheads, trunk_key="car", params=jparams(max_age=4))
     seen = set()
     for t, (frame, cb) in enumerate(_scene()):
-        got = pipe.step_frame(frame, cb, 0.5)
+        port_frame = frame
+        if plans == "attached":
+            port_frame = attach_plans(frame, frame_plans(
+                frame["coordinates"][0], frame["voxels_valid"][0], models["car"].cfg))
+        calls = frame_plans.calls
+        got = pipe.step_frame(port_frame, cb, 0.5)
+        assert frame_plans.calls == calls  # the step plans nothing itself
         want = jpipe.step_frame(frame, cb, 0.5)
         assert set(got) == set(want) == set(cb)
         ids = []

@@ -79,10 +79,26 @@ Phases (any failure ends the run with a non-zero exit code):
      that frame alone (bf16, 2e-2);
   14. the device voxelizer (300k points into the 120k cap) and rotate_nms
      (500 boxes) against the port's numpy copies: voxels and keep masks
-     exact.
+     exact;
+  15. serve a synthetic preprocessed split (data.synthetic.write_track_split:
+     2 scenes x 8 frames at the full car configuration, ~70k voxels a frame
+     from a key cloud and 9 sweeps) with the port's CLIs on the card:
+     random weights saved with save_checkpoint and loaded by the CLI
+     (load_checkpoint + merge_pretrained), `tools.track_scene.main` through
+     the unplanned trunk (12 sorted_lookup + 21 gather_conv per frame,
+     counted), the path's 12 lookups and 21 f32 convs on one served frame
+     each against its plain version as in phases 3b-3d, the same CLI on
+     cuda and cpu at a small configuration (ids
+     exact, tracking_score within 1e-4), `tools.track_multiclass.main` on
+     car + pedestrian, eval_tracking_lite's AMOTA (a check that it runs),
+     and the serving loop's frames/s with its host split per frame
+     (dataset[i], step, formatting), the same frames from memory, the
+     device busy share, the step's spans and the top kernels of one
+     profiled pass, and no host-device synchronisation in a step fed from
+     host arrays.
 The line before the last is {"kernels": [...]} (launches per main path
-from the phases that drive one, 4, 6, 8, 9, 11, 12 and 13, each counted
-from 0 just before it; times from phases 3-3d and 8); the last is
+from the phases that drive one, 4, 6, 8, 9, 11, 12, 13 and 15, each counted
+from 0 just before it; times from phases 3-3d, 8 and 15); the last is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -207,11 +223,12 @@ CONV_GROUPS = ("conv_input", "res0", "down1", "res1", "down2", "res2", "down3", 
 
 
 def phase_gather_kernels(label, run):
-    """Phases 3b-3d: the 12 sorted_lookup and 21 gather_conv calls that
-    `run()` makes (one unplanned trunk pass: the 4-lane step, the B=1 step
-    without plans or the two-frame forward), each against its plain version
-    on its own arguments, a second bf16 run (the same bits) and the times
-    (per path: the sum over its calls)."""
+    """Phases 3b-3d and 15: the 12 sorted_lookup and 21 gather_conv calls
+    that `run()` makes (one unplanned trunk pass: the 4-lane step, the B=1
+    step without plans, the two-frame forward or a served split's frame),
+    each against its plain version on its own arguments (a conv also on
+    seeded f32 and bf16 features at its gather table), a second bf16 run
+    (the same bits) and the times (per path: the sum over its calls)."""
     import torch
 
     from shasta_tpu_torch.ops.kernels import gather_conv as gc
@@ -257,11 +274,25 @@ def phase_gather_kernels(label, run):
     rec = recs["gather_conv"]
     groups = {}  # convs sharing input width, gather table and weight shape
     for f_path, idx, w_path in convs:
-        groups.setdefault((f_path.shape, idx.data_ptr(), w_path.shape), []).append(idx)
+        groups.setdefault((f_path.shape, idx.data_ptr(), w_path.shape), []).append(
+            (f_path, idx, w_path))
     check(len(groups) == len(CONV_GROUPS), f"{label}: {len(groups)} conv groups in the trunk")
     for group, ((f_shape, _, w_shape), calls) in zip(CONV_GROUPS, groups.items()):
-        idx, n = calls[0], len(calls)
+        idx, n = calls[0][1], len(calls)
         (V, cin), (M, K), co = f_shape, idx.shape, w_shape[2]
+        # the path's own features and weights, in its dtype: max abs error
+        # within 1e-4 (f32) or 2e-2 (bf16) of the output's scale (at least 1)
+        own_err = 0.0
+        for f_path, idx_path, w_path in calls:
+            got = gc.gather_conv(f_path, idx_path, w_path).float()
+            want = gc.gather_conv_plain(f_path, idx_path, w_path)
+            torch.cuda.synchronize()
+            tol = (1e-4 if f_path.dtype == torch.float32 else 2e-2) * max(
+                1.0, float(want.abs().max()))
+            own = float((got - want).abs().max())
+            check(own <= tol, f"{label}: gather_conv {group} on the path's {f_path.dtype} "
+                              f"inputs: max abs err {own} > {tol}")
+            own_err = max(own_err, own)
         f32 = torch.randn(V, cin, generator=g).to(idx.device)
         w32 = (torch.randn(K, cin, co, generator=g) / (K * cin) ** 0.5).to(idx.device)
         for dt, atol, rtol in ((torch.float32, 1e-4, 0.0), (torch.bfloat16, 2e-2, 2e-2)):
@@ -285,7 +316,8 @@ def phase_gather_kernels(label, run):
         rec["flops"] += n * 2.0 * hits * cin * co
         print(f"  gather_conv    {group:10s} {cin:3d}->{co:3d} K={K:2d} x{n}  V={V:7d} "
               f"M={M:7d} hits={hits:9d} ({hits / M:.3f}/row)  core {gc.mma_core(K, cin, co)}  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  (bf16)")
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  (bf16); on the path's "
+              f"{f_path.dtype} inputs max abs err {own_err:.3g}")
     for name, r in recs.items():
         print(f"  {label}: {name} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
               + (f", searchsorted {r['library_ms']:.4f} ms" if r["library_ms"] else ""))
@@ -772,6 +804,217 @@ def phase_box_ops(dev):
           f"{int(keep.sum())} == the numpy copy (card {nms_s * 1e3:.1f} ms)")
 
 
+SERVE_SCENES, SERVE_FRAMES = 2, 8
+SERVE_LABEL = "served split frame"
+# the small geometry of the cuda-against-cpu run of phase 15
+SERVE_SMALL = dict(
+    max_objects=10,
+    model=dict(max_obj=10, grid_shape=(41, 80, 80), pc_start=(-12.0, -12.0), voxel_size=(0.3, 0.3),
+               cap_conv2=2000, cap_conv3=1000, cap_conv4=500, cap_extra=500),
+    point_pipeline=dict(voxel_size=(0.3, 0.3, 0.2), pc_range=(-12.0, -12.0, -5.0, 12.0, 12.0, 3.0),
+                        max_voxels=3000, nsweeps=3))
+
+
+def same_result(got, want, label):
+    """Two tracking results: the same tokens and annotations, ids and
+    boxes exact, tracking_score within 1e-4. Returns the annotation count."""
+    check(list(got["results"]) == list(want["results"]), f"{label}: tokens differ")
+    n = 0
+    for tok, w_annos in want["results"].items():
+        g_annos = got["results"][tok]
+        check(len(g_annos) == len(w_annos), f"{label} {tok}: {len(g_annos)} annotations, "
+                                            f"want {len(w_annos)}")
+        for g, w in zip(g_annos, w_annos):
+            check(all(g[k] == w[k] for k in w if k != "tracking_score"),
+                  f"{label} {tok}: {g} differs from {w}")
+            check(abs(g["tracking_score"] - w["tracking_score"]) <= 1e-4,
+                  f"{label} {tok}: tracking_score {g['tracking_score']} vs {w['tracking_score']}")
+            n += 1
+    return n
+
+
+def random_checkpoint(cfg, path, seed):
+    """A .pth of seeded random weights for cfg's model (save_checkpoint)."""
+    from shasta_tpu_torch.convert import load_jax_variables, random_jax_variables
+    from shasta_tpu_torch.tools.common import build_model
+    from shasta_tpu_torch.train.checkpoint import save_checkpoint
+
+    model = build_model(cfg, "cpu")
+    load_jax_variables(model, random_jax_variables(model, seed=seed))
+    save_checkpoint(path, model.state_dict())
+    return path
+
+
+def phase_serving(kernels, smi):
+    """Phase 15: serve a synthetic preprocessed split (write_track_split, the
+    full car configuration) with the port's CLIs on the card: the host
+    runtime, checkpoint save and load, the track_scene CLI (every frame
+    through the unplanned trunk: sorted_lookup + gather_conv, launches
+    counted), the path's lookups and convs on one served frame against
+    their plain versions (phase_gather_kernels), the same CLI on cuda and
+    on cpu at a small configuration, the multi-class CLI on car +
+    pedestrian, eval_tracking_lite, and the serving loop's frames/s with its
+    host split per frame (reading plus voxelization, step, formatting), the
+    device busy share of one pass and the loop over frames already in
+    memory; a step fed from host arrays must not synchronise with the card.
+    Returns (launches, the path's kernel records, numbers)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from shasta_tpu_torch import runtime
+    from shasta_tpu_torch.data.synthetic import write_split_config, write_track_split
+    from shasta_tpu_torch.device import upload
+    from shasta_tpu_torch.infer import FRAME_KEYS, track_scene_dataset
+    from shasta_tpu_torch.profile_step import sync_calls
+    from shasta_tpu_torch.tools import track_multiclass, track_scene
+    from shasta_tpu_torch.tools.common import build_dataset, build_pipeline, load_model
+    from shasta_tpu_torch.tracker.runner import eval_tracking_lite
+    from shasta_tpu_torch.utils import Config
+
+    check(runtime.available(), "the host runtime (host_ops.cpp) does not build")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "work_dirs", "chip_smoke_serving")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    configs = os.path.join(repo, "configs", "nusc")
+    t0 = time.perf_counter()
+    sp = write_track_split(os.path.join(root, "data"),
+                           Config.fromfile(os.path.join(configs, "car.py")),
+                           n_scenes=SERVE_SCENES, n_frames=SERVE_FRAMES, seed=15)
+    # the configs and checkpoints under the file names of track_multiclass.CFG_NAME
+    stems = {"car": "car", "pedestrian": "ped"}
+    cfg_paths = {n: write_split_config(os.path.join(configs, f"{stem}.py"), sp["val"],
+                                       os.path.join(root, f"{stem}.py"))
+                 for n, stem in stems.items()}
+    cfgs = {n: Config.fromfile(p) for n, p in cfg_paths.items()}
+    ckpts = {n: random_checkpoint(cfgs[n], os.path.join(root, f"{stem}.pth"), seed=15 + i)
+             for i, (n, stem) in enumerate(stems.items())}
+    n = SERVE_SCENES * SERVE_FRAMES
+    print(f"phase 15: wrote a {SERVE_SCENES} x {SERVE_FRAMES}-frame split and two random "
+          f".pth checkpoints in {time.perf_counter() - t0:.1f} s")
+
+    # the CLI on the card, counted
+    out = os.path.join(root, "cuda", "tracking_result.json")
+    args = ["--config", cfg_paths["car"], "--checkpoint", ckpts["car"], "--out", out]
+    result, launches = counted(kernels, lambda: track_scene.main(args))
+    want = {k.__name__: 0 for k in kernels}
+    want.update(sorted_lookup=12 * n, gather_conv=21 * n)
+    check(launches == want, f"serving CLI: expected 12 sorted_lookup + 21 gather_conv "
+                            f"launches per frame, got {launches}")
+    with open(out) as f:
+        check(json.load(f) == result, "serving CLI: the file differs from the result")
+    check(list(result["results"]) == sp["tokens"], "serving CLI: tokens out of order")
+    annos = [a for v in result["results"].values() for a in v]
+    check(len(annos) > 0 and all(np.isfinite(a["tracking_score"]) and int(a["tracking_id"]) >= 1
+                                 and a["tracking_name"] == "car" for a in annos),
+          "serving CLI: an annotation has no id >= 1, a score that is not finite or "
+          "another class")
+    lite = eval_tracking_lite(result["results"], sp["gt_info_dir"], classes=["car"])
+    ds = build_dataset(cfgs["car"], "val")
+    voxels = [int(ds[i]["voxels_valid"].sum()) for i in (0, n - 1)]
+    print(f"phase 15: track_scene CLI on cuda: {n} frames, {len(annos)} annotations, "
+          f"{len({a['tracking_id'] for a in annos})} ids, launches {launches}; voxels of "
+          f"the first and last frame {voxels}; eval_tracking_lite AMOTA "
+          f"{lite['car']['amota']:.4f} (random weights: a check that it runs)")
+
+    # cuda against cpu, small configuration
+    small_base = write_split_config(os.path.join(configs, "car.py"), {},
+                                    os.path.join(root, "small_base.py"), **SERVE_SMALL)
+    sp_s = write_track_split(os.path.join(root, "small"), Config.fromfile(small_base),
+                             n_scenes=2, n_frames=4, seed=16, n_objects=16, n_points=4000,
+                             n_spots=1000)
+    small = write_split_config(small_base, sp_s["val"], os.path.join(root, "small.py"))
+    ck_s = random_checkpoint(Config.fromfile(small), os.path.join(root, "small.pth"), seed=17)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        runs[d] = track_scene.main(["--config", small, "--checkpoint", ck_s, "--out",
+                                    os.path.join(root, f"small_{d}.json")]
+                                   + (["--cpu"] if d == "cpu" else []))
+    k = same_result(runs["cuda"], runs["cpu"], "small config cuda vs cpu")
+    check(k > 0, "small config: no annotation")
+    print(f"phase 15: small configuration, CLI on cuda == on cpu ({k} annotations: ids "
+          f"exact, tracking_score within 1e-4)")
+
+    # the multi-class CLI, car + pedestrian over one trunk
+    out_mc = os.path.join(root, "multiclass", "tracking_result.json")
+    mc, launches_mc = counted(kernels, lambda: track_multiclass.main(
+        ["--classes", "car,pedestrian", "--config_dir", root, "--checkpoints",
+         os.path.join(root, "{cls}.pth"), "--out", out_mc]))
+    check(launches_mc == want, f"multi-class CLI: expected 12 + 21 launches per frame, "
+                               f"got {launches_mc}")
+    names = {a["tracking_name"] for v in mc["results"].values() for a in v}
+    check(list(mc["results"]) == sp["tokens"] and names <= {"car", "pedestrian"} and names,
+          f"multi-class CLI: tokens or classes wrong ({names})")
+    lite_mc = eval_tracking_lite(mc["results"], sp["gt_info_dir"], classes=["car", "pedestrian"])
+    print(f"phase 15: track_multiclass CLI on cuda (car, pedestrian): "
+          f"{sum(map(len, mc['results'].values()))} annotations of {sorted(names)}, launches "
+          f"{launches_mc}; mean AMOTA-lite {lite_mc['mean_amota']:.4f}")
+
+    # the serving loop's time: the CLI's loop over the split, and over the
+    # same frames already read into memory
+    pipe = build_pipeline(cfgs["car"], load_model(cfgs["car"], ckpts["car"], "cuda"))
+    track_scene_dataset(pipe, ds)  # warm-up
+    loop_runs, splits = [], []
+    for _ in range(TIMED_RUNS):
+        timings = {}
+        t0 = time.perf_counter()
+        track_scene_dataset(pipe, ds, timings=timings)
+        loop_runs.append(n / (time.perf_counter() - t0))
+        splits.append({k: v / n * 1e3 for k, v in timings.items()})
+    samples = [ds[i] for i in range(n)]
+    # the step of a frame that comes from the host must not wait for the card
+    frame = {k: samples[1][k][None] for k in FRAME_KEYS}
+    syncs = sync_calls(lambda: pipe.step_frame(frame, len(samples[1]["cls_det_boxes"]), 0.5))
+    check(not syncs, f"a serving step from host arrays synchronised with the card: {syncs}")
+    # the path's lookups and f32 convs against their plain versions on a
+    # served frame (the car config's caps, the split's clustered voxels)
+    gather = phase_gather_kernels(SERVE_LABEL, lambda: pipe.model.bev_single(
+        {k: upload(v, "cuda") for k, v in frame.items()}))
+    mem_runs = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        track_scene_dataset(pipe, samples)
+        mem_runs.append(n / (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        track_scene_dataset(pipe, ds)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    kernels_ms = sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key) for e in events
+                         if e.device_type == cuda and not e.is_user_annotation
+                         and e.self_device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in kernels_ms)
+    spans = {e.key: round(e.cpu_time_total / 1e3 / n, 3) for e in events
+             if e.key.startswith("step.") and e.device_type != cuda}
+    split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    fps_loop, fps_mem = statistics.median(loop_runs), statistics.median(mem_runs)
+    print(f"phase 15: serving loop, {TIMED_RUNS} runs of {n} frames (f32 trunk, full car "
+          f"config): {[round(x, 3) for x in loop_runs]} frames/s (median {fps_loop:.3f}); "
+          f"host ms per frame (median) read {split['read']:.3f}, step {split['step']:.3f}, "
+          f"format {split['format']:.3f}; the same frames from memory "
+          f"{[round(x, 3) for x in mem_runs]} frames/s (median {fps_mem:.3f}); profiled pass: "
+          f"wall {wall:.3f} ms, device busy {busy:.3f} ms per frame "
+          f"({100 * busy / wall:.1f}%) ({smi})")
+    print(f"  host ms per frame in the step's spans {spans}; the step from host arrays "
+          f"synchronised {len(syncs)} times; device ms per frame, launches per frame, kernel:")
+    for ms, count, key in kernels_ms[:8]:
+        print(f"    {ms:9.3f} {count:7.1f}  {key[:100]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, gather, dict(
+        frames_per_s=fps_loop, frames_per_s_runs=loop_runs, host_ms_per_frame=split,
+        host_ms_per_frame_runs=splits, in_memory_frames_per_s=fps_mem,
+        in_memory_frames_per_s_runs=mem_runs, profiled_wall_ms=wall, device_busy_ms=busy,
+        voxels_first_last=voxels, amota_lite=lite["car"]["amota"],
+        multiclass_mean_amota_lite=lite_mc["mean_amota"], step_spans_ms=spans,
+        top_kernels=[{"ms": ms, "launches": c, "name": k} for ms, c, k in kernels_ms[:8]])
+
+
 def bound_of(rec) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") of a kernel record's counted
     bytes and operations on the H100 (shasta_tpu_torch.timing)."""
@@ -1025,6 +1268,12 @@ def main() -> int:
     # 14. device box ops
     phase_box_ops(dev)
 
+    # 15. a split served by the CLIs
+    path_launches["15: serving CLI"], gather_paths[SERVE_LABEL], serving = phase_serving(
+        kernels, smi)
+    print(f"phase 15: serving loop {serving['frames_per_s']:.3f} frames/s (f32) beside phase "
+          f"11's step alone {fps_nop:.3f} frames/s (bf16 bench frame)")
+
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
                              "shasta_tpu/ops/pallas/block_conv.py:117", "B=1 frame with plans"),
            "keyed_conv": ("shasta_tpu_torch/csrc/window_conv.cu",
@@ -1078,7 +1327,8 @@ def main() -> int:
                       "b1_profiles": profiles,
                       "lanes4_frames_per_s": fps4, "lanes4_frames_per_s_runs": sps_runs,
                       "classes7_frames_per_s": fps7, "classes7_frames_per_s_runs": fps7_runs,
-                      "classes7_peak_device_gib": peak_gb, "card": smi, "host": host,
+                      "classes7_peak_device_gib": peak_gb, "serving": serving,
+                      "card": smi, "host": host,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,11 @@
-"""Box geometry: the port of shasta_tpu/core/boxes.py:23-72.
+"""Box geometry: the port of shasta_tpu/core/boxes.py:23-72 (torch) and of
+its host helpers quaternion_yaw and yaw_to_quaternion (:75-92, numpy).
 
 Box row convention (11 features): [x, y, z, w, l, h, yaw, vx, vy, dt, score].
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..device import const
@@ -45,3 +47,20 @@ def box_points_5(boxes7: torch.Tensor) -> torch.Tensor:
         [mids, height[..., None, :].expand(mids.shape[:-1] + (1,))], dim=-1)
     center3d = boxes7[..., None, :3]
     return torch.cat([center3d, mids3d], dim=-2)
+
+
+def quaternion_yaw(q) -> float:
+    """Yaw from a [w, x, y, z] quaternion (numpy, host side): the x axis
+    rotated by the normalised quaternion, atan2 of its xy projection
+    (det3d/datasets/nuscenes/nuscenes.py:35-50, without pyquaternion)."""
+    q = np.asarray(q, np.float64)
+    n = np.linalg.norm(q)
+    w, x, y, z = q / (n if n > 0 else 1.0)
+    vx = 1.0 - 2.0 * (y * y + z * z)
+    vy = 2.0 * (x * y + z * w)
+    return float(np.arctan2(vy, vx))
+
+
+def yaw_to_quaternion(yaw: float) -> np.ndarray:
+    """Inverse of `quaternion_yaw` for z-axis rotations -> [w, x, y, z]."""
+    return np.array([np.cos(yaw / 2.0), 0.0, 0.0, np.sin(yaw / 2.0)])

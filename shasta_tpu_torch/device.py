@@ -39,9 +39,12 @@ def const(values, device, dtype=None) -> torch.Tensor:
 
 def upload(values, device) -> torch.Tensor:
     """A host array or tensor on `device`; to a card through pinned memory
-    and a non-blocking copy, which does not wait for the card."""
+    and a non-blocking copy, which does not wait for the card. A tensor
+    already on a device of that type is returned as it is."""
     t = torch.as_tensor(values)
     device = torch.device(device)
+    if t.device.type == device.type:
+        return t
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)

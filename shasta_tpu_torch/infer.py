@@ -12,6 +12,8 @@ scene on one shared trunk.
 
 `step_chunk` advances T frames per call (the JAX lax.scan as a Python
 loop over the step) and returns the T packed outputs as one tensor.
+`track_scene_dataset` (infer.py:910-1040) serves a dataset of ordered
+frames through a ScenePipeline and returns the tracking result.
 
 Everything after the upload stays on the device; the host reads the
 packed outputs only when a StepOutput field is accessed. The port needs
@@ -22,11 +24,14 @@ always 1.
 from __future__ import annotations
 
 import copy
+import time
+from collections import deque
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from . import plans as hp
 from .core.bilinear import sample_bev_features
 from .core.boxes import box_points_5
 from .device import resolve_device, upload
@@ -153,8 +158,9 @@ def _packed(tid, used, ref, keep, fn) -> torch.Tensor:
 
 def _frame_on(frame: dict, dev) -> dict:
     """The frame's arrays the step reads (FRAME_KEYS and any plan_*), as
-    tensors on dev."""
-    return {k: torch.as_tensor(v, device=dev) for k, v in frame.items()
+    tensors on dev; host arrays go up through `upload`, so a step fed from
+    the host does not wait for the card's queued work."""
+    return {k: upload(v, dev) for k, v in frame.items()
             if k in FRAME_KEYS or k.startswith("plan_")}
 
 
@@ -519,3 +525,114 @@ class MultiClassScenePipeline:
         each class's rows; no fetch until a field is read."""
         return {n: _ClassStepOutput(packed, i, self.max_obj[n], self.n_max)
                 for i, n in enumerate(self._names) if n in names}
+
+
+RESULT_META = {"use_camera": False, "use_lidar": True, "use_radar": False,
+               "use_map": False, "use_external": False}
+
+
+def anno_from(src: dict, token: str, tid: int, score: float, translation=None) -> dict:
+    """One tracking annotation of a detection dict (a cls_det_boxes entry)."""
+    return {
+        "sample_token": token,
+        "translation": list(translation if translation is not None
+                            else src["translation"]),
+        "size": list(src["size"]),
+        "rotation": list(src["rotation"]),
+        "velocity": list(src["velocity"]),
+        "tracking_id": str(int(tid)),
+        "tracking_name": src["detection_name"],
+        "tracking_score": float(score),
+        "attribute_name": src.get("attribute_name"),
+    }
+
+
+def fn_translation(src: dict, fn_lag: float) -> list:
+    """An FN-propagated prev box's translation, moved forward by the prev
+    frame's stored dt times its velocity (eval.py:141-148)."""
+    tr = list(src["translation"])
+    tr[0] += fn_lag * src["velocity"][0]
+    tr[1] += fn_lag * src["velocity"][1]
+    return tr
+
+
+def track_scene_dataset(pipeline: ScenePipeline, dataset, progress: bool = False,
+                        use_host_plans: bool = False, timings: dict | None = None) -> dict:
+    """Run the pipeline over a dataset of ordered frames (a
+    data.nuscenes.NuScenesTrackDataset in test mode, or a list of its
+    samples); returns the tracking result
+    {"results": {token: [annos]}, "meta": ...} from the dataset's detection
+    dicts. The pipeline resets at every scene start (a sample without
+    prev_token).
+
+    Frames run without host plans (the unplanned trunk: sorted_lookup +
+    gather_conv), as the JAX CLI serves them; use_host_plans builds each
+    frame's plans on the host (plans.frame_plans) and runs the planned
+    trunk. Formatting is deferred two frames deep: frame i's packed output
+    starts its copy to the host (StepOutput.start_fetch) as soon as its step
+    is queued and is read after frame i+2's step is queued. timings, if
+    given, accumulates host seconds under "read" (dataset[i]: reading and
+    voxelization), "step" (queueing the step) and "format" (reading the
+    outputs back and building the annotations)."""
+    results: dict[str, list] = {}
+    it = range(len(dataset))
+    if progress:
+        try:
+            from tqdm import tqdm
+
+            it = tqdm(it)
+        except ImportError:
+            pass
+    N = pipeline.model.cfg.max_obj
+    spent = timings if timings is not None else {}
+
+    def timed(part, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        spent[part] = spent.get(part, 0.0) + time.perf_counter() - t0
+        return out
+
+    def step(sample):
+        frame = {k: sample[k][None] for k in FRAME_KEYS}
+        n_curr = len(sample["cls_det_boxes"])
+        lag = float(sample["det_boxes"][0, 9]) if n_curr else 0.5
+        if use_host_plans:
+            frame = hp.attach_plans(frame, hp.frame_plans(
+                frame["coordinates"][0], frame["voxels_valid"][0], pipeline.model.cfg))
+        out = pipeline.step_frame(frame, n_curr, lag)
+        out.start_fetch()
+        return out
+
+    def format_out(sample, out):
+        annos = []
+        for k in range(len(sample["cls_det_boxes"])):
+            if out.used[k]:
+                annos.append(anno_from(sample["cls_det_boxes"][k], sample["token"],
+                                       out.tid[k], out.ref[k]))
+        # FN-propagated prev boxes tracked this frame
+        prev_cls = sample.get("prev_cls_det_boxes") or []
+        if prev_cls:
+            fn_lag = float(sample["prev_det_boxes"][0, 9])
+            for n, src in enumerate(prev_cls):
+                if out.fn[n] and out.used[N + n]:
+                    annos.append(anno_from(src, sample["token"], out.tid[N + n],
+                                           out.ref[N + n], fn_translation(src, fn_lag)))
+        results[sample["token"]] = annos
+
+    DEPTH = 2
+    pending: deque = deque()
+
+    def drain(all_: bool = False):
+        while pending and (all_ or len(pending) > DEPTH):
+            format_out(*pending.popleft())
+
+    pipeline.reset()
+    for i in it:
+        sample = timed("read", dataset.__getitem__, i)
+        if not sample["prev_token"]:
+            timed("format", drain, True)
+            pipeline.reset()
+        pending.append((sample, timed("step", step, sample)))
+        timed("format", drain)
+    timed("format", drain, True)
+    return {"results": results, "meta": dict(RESULT_META)}

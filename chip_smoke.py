@@ -95,11 +95,25 @@ Phases (any failure ends the run with a non-zero exit code):
      (dataset[i], step, formatting), the same frames from memory, the
      device busy share, the step's spans and the top kernels of one
      profiled pass, and no host-device synchronisation in a step fed from
-     host arrays.
+     host arrays;
+  16. the official per-class eval flow on a synthetic split (9 scenes x 3
+     frames at the full car configuration, f32): `tools.eval.main --batch
+     8` (6 steps, 12 sorted_lookup + 21 gather_conv each, counted;
+     cp_val.json holds every token with finite ref_detection_score), each
+     strided stage's set against its cap per lane on the first 8-lane step,
+     that step's 12 lookups and 21 f32 convs against their plain versions,
+     `--parity` over the first scene (12 + 21 per pair, counted),
+     `tools.merge_results` and `tools.pub_test --skip_eval` (ids carried
+     from frame to frame), the eval CLI on cuda and cpu at a small
+     configuration with 3 lanes (annotations equal, ref_detection_score
+     within 1e-4), the eval loop's frames/s (three runs) with its host split
+     per frame (read, step, assemble), the device busy share of one profiled
+     pass and no synchronisation in an 8-lane step fed from host arrays.
 The line before the last is {"kernels": [...]} (launches per main path
-from the phases that drive one, 4, 6, 8, 9, 11, 12, 13 and 15, each counted
-from 0 just before it; times from phases 3-3d, 8 and 15); the last is
-{"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
+from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15 and 16, each
+counted from 0 just before it; times from phases 3-3d, 8, 15 and 16); the
+last is {"ok": true, "device": {...}}. Imports nothing of JAX or of the
+JAX package.
 """
 from __future__ import annotations
 
@@ -223,9 +237,10 @@ CONV_GROUPS = ("conv_input", "res0", "down1", "res1", "down2", "res2", "down3", 
 
 
 def phase_gather_kernels(label, run):
-    """Phases 3b-3d and 15: the 12 sorted_lookup and 21 gather_conv calls
+    """Phases 3b-3d, 15 and 16: the 12 sorted_lookup and 21 gather_conv calls
     that `run()` makes (one unplanned trunk pass: the 4-lane step, the B=1
-    step without plans, the two-frame forward or a served split's frame),
+    step without plans, the two-frame forward, a served split's frame or
+    an 8-lane eval step),
     each against its plain version on its own arguments (a conv also on
     seeded f32 and bf16 features at its gather table), a second bf16 run
     (the same bits) and the times (per path: the sum over its calls)."""
@@ -815,9 +830,10 @@ SERVE_SMALL = dict(
                         max_voxels=3000, nsweeps=3))
 
 
-def same_result(got, want, label):
-    """Two tracking results: the same tokens and annotations, ids and
-    boxes exact, tracking_score within 1e-4. Returns the annotation count."""
+def same_result(got, want, label, score="tracking_score"):
+    """Two results (tracking, or cp_{split}.json with score
+    "ref_detection_score"): the same tokens and annotations, every other
+    value exact, the score within 1e-4. Returns the annotation count."""
     check(list(got["results"]) == list(want["results"]), f"{label}: tokens differ")
     n = 0
     for tok, w_annos in want["results"].items():
@@ -825,10 +841,10 @@ def same_result(got, want, label):
         check(len(g_annos) == len(w_annos), f"{label} {tok}: {len(g_annos)} annotations, "
                                             f"want {len(w_annos)}")
         for g, w in zip(g_annos, w_annos):
-            check(all(g[k] == w[k] for k in w if k != "tracking_score"),
+            check(g.keys() == w.keys() and all(g[k] == w[k] for k in w if k != score),
                   f"{label} {tok}: {g} differs from {w}")
-            check(abs(g["tracking_score"] - w["tracking_score"]) <= 1e-4,
-                  f"{label} {tok}: tracking_score {g['tracking_score']} vs {w['tracking_score']}")
+            check(abs(g[score] - w[score]) <= 1e-4,
+                  f"{label} {tok}: {score} {g[score]} vs {w[score]}")
             n += 1
     return n
 
@@ -1012,6 +1028,212 @@ def phase_serving(kernels, smi):
         in_memory_frames_per_s_runs=mem_runs, profiled_wall_ms=wall, device_busy_ms=busy,
         voxels_first_last=voxels, amota_lite=lite["car"]["amota"],
         multiclass_mean_amota_lite=lite_mc["mean_amota"], step_spans_ms=spans,
+        top_kernels=[{"ms": ms, "launches": c, "name": k} for ms, c, k in kernels_ms[:8]])
+
+
+EVAL_SCENES, EVAL_FRAMES, EVAL_LANES = 9, 3, 8
+EVAL_LABEL = f"eval step, {EVAL_LANES} lanes"
+
+
+def phase_eval(kernels, smi):
+    """Phase 16: the official per-class eval flow on a synthetic split
+    (write_track_split, the full car configuration, 9 scenes x 3 frames):
+    the eval CLI at 8 lanes (launches per step counted, cp_val.json checked),
+    each strided stage's set against its cap per lane on the first 8-lane
+    step, that step's lookups and convs against their plain versions
+    (phase_gather_kernels), the CLI's --parity loop over the first scene
+    (launches per pair), merge_results and pub_test on its output, the CLI
+    on cuda and on cpu at a small configuration (3 lanes), and the eval
+    loop's frames/s with its host split per frame (read, step, assemble),
+    the device busy share of one profiled pass and the synchronisations of
+    a step fed from host arrays. Returns (launches at 8 lanes, launches of
+    the parity run, the step's kernel records, numbers)."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from shasta_tpu_torch.data.nuscenes import collate
+    from shasta_tpu_torch.data.synthetic import write_split_config, write_track_split
+    from shasta_tpu_torch.device import upload
+    from shasta_tpu_torch.infer import FRAME_KEYS
+    from shasta_tpu_torch.probe_b1_routes import stage_sets
+    from shasta_tpu_torch.profile_step import sync_calls
+    from shasta_tpu_torch.tools import eval as eval_cli
+    from shasta_tpu_torch.tools import merge_results, pub_test
+    from shasta_tpu_torch.tools.common import build_dataset, load_model
+    from shasta_tpu_torch.tracker.runner import (EvalLanes, lane_schedule,
+                                                 run_affinity_eval_batched)
+    from shasta_tpu_torch.utils import Config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "work_dirs", "chip_smoke_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    configs = os.path.join(repo, "configs", "nusc")
+    t0 = time.perf_counter()
+    sp = write_track_split(os.path.join(root, "data"),
+                           Config.fromfile(os.path.join(configs, "car.py")),
+                           n_scenes=EVAL_SCENES, n_frames=EVAL_FRAMES, seed=16)
+    cfg_path = write_split_config(os.path.join(configs, "car.py"), sp["val"],
+                                  os.path.join(root, "car.py"))
+    cfg = Config.fromfile(cfg_path)
+    ckpt = random_checkpoint(cfg, os.path.join(root, "car.pth"), seed=16)
+    n = EVAL_SCENES * EVAL_FRAMES
+    steps = len(lane_schedule([EVAL_FRAMES] * EVAL_SCENES, EVAL_LANES))
+    check(steps == 6, f"the lane schedule has {steps} rows, want 6")
+    print(f"phase 16: wrote a {EVAL_SCENES} x {EVAL_FRAMES}-frame split and a random .pth in "
+          f"{time.perf_counter() - t0:.1f} s; {steps} steps of {EVAL_LANES} lanes")
+
+    # the eval CLI at 8 lanes, counted
+    wd = os.path.join(root, "car_eval")
+    args = ["--config", cfg_path, "--checkpoint", ckpt, "--work_dir", wd, "--split", "val",
+            "--batch", str(EVAL_LANES)]
+    annos, launches = counted(kernels, lambda: eval_cli.main(args))
+    want = {k.__name__: 0 for k in kernels}
+    want.update(sorted_lookup=12 * steps, gather_conv=21 * steps)
+    check(launches == want, f"eval CLI: expected 12 sorted_lookup + 21 gather_conv launches "
+                            f"per {EVAL_LANES}-lane step, got {launches}")
+    cp_path = os.path.join(wd, "cp_val.json")
+    with open(cp_path) as f:
+        check(json.load(f) == annos, "eval CLI: cp_val.json differs from the result")
+    check(sorted(annos["results"]) == sorted(sp["tokens"]), "eval CLI: tokens missing")
+    flat = [a for v in annos["results"].values() for a in v]
+    check(len(flat) > 0 and all(np.isfinite(a["ref_detection_score"]) for a in flat),
+          "eval CLI: no annotation, or a ref_detection_score that is not finite")
+    flags = {k: sum(k in a for a in flat) for k in ("newborn", "FN", "dead")}
+    print(f"phase 16: eval CLI on cuda, {EVAL_LANES} lanes: {n} frames, {len(flat)} "
+          f"annotations, flags {flags}, launches {launches}")
+
+    # each stage's set against its cap, per lane, on the first 8-lane step
+    ds = build_dataset(cfg, "val")
+    meta = ds.metadata()
+    row = lane_schedule([EVAL_FRAMES] * EVAL_SCENES, EVAL_LANES)[0]
+    firsts = [ds.read_at(si * EVAL_FRAMES, meta[si * EVAL_FRAMES]["rng_state"]) for si, _ in row]
+    host8 = collate([{k: s[k] for k in FRAME_KEYS} for s in firsts])
+    model = load_model(cfg, ckpt, "cuda")
+    frame8 = {k: upload(v, "cuda") for k, v in host8.items()}
+    sets = stage_sets(lambda: model.bev_single(frame8))
+    lane_sets = {}
+    for st in sets:
+        lane_sets[st["name"]] = dict(cap=st["cap"], distinct=st["lane_distinct"],
+                                     kept=st["lane_kept"])
+        print(f"  {st['name']:6s} cap {st['cap']:7d}: per lane distinct {st['lane_distinct']}, "
+              f"kept {st['lane_kept']}")
+    check(all(sum(st["lane_kept"]) <= st["cap"] for st in sets), "a stage kept more than its cap")
+    voxels = [int(s["voxels_valid"].sum()) for s in firsts]
+    print(f"  valid voxels per lane {voxels}")
+
+    # the step's lookups and f32 convs against their plain versions
+    gather = phase_gather_kernels(EVAL_LABEL, lambda: model.bev_single(frame8))
+
+    # the parity loop over the first scene
+    with open(sp["val"]["info_path"], "rb") as f:
+        infos = pickle.load(f)
+    first_infos = os.path.join(root, "infos_first_scene.pkl")
+    with open(first_infos, "wb") as f:
+        pickle.dump(infos[:EVAL_FRAMES], f)
+    first_cfg = write_split_config(os.path.join(configs, "car.py"),
+                                   dict(sp["val"], info_path=first_infos),
+                                   os.path.join(root, "car_first.py"))
+    par, launches_par = counted(kernels, lambda: eval_cli.main(
+        ["--config", first_cfg, "--checkpoint", ckpt, "--work_dir", os.path.join(root, "parity"),
+         "--parity"]))
+    want_par = {k.__name__: 0 for k in kernels}
+    want_par.update(sorted_lookup=12 * EVAL_FRAMES, gather_conv=21 * EVAL_FRAMES)
+    check(launches_par == want_par, f"eval CLI --parity: expected 12 + 21 launches per pair, "
+                                    f"got {launches_par}")
+    check(list(par["results"]) == sp["tokens"][:EVAL_FRAMES]
+          and all(np.isfinite(a["ref_detection_score"]) for v in par["results"].values()
+                  for a in v), "eval CLI --parity: tokens or scores wrong")
+    print(f"phase 16: eval CLI --parity over the first scene: {EVAL_FRAMES} pairs, "
+          f"{sum(map(len, par['results'].values()))} annotations, launches {launches_par}")
+
+    # merge_results and pub_test on the 8-lane output
+    merged_path = os.path.join(root, "merged", "cp_val.json")
+    merged = merge_results.main(["--inputs", cp_path, "--output", merged_path])
+    check(merged["results"] == annos["results"], "merge_results of one file changed it")
+    result = pub_test.main(["--predictions", merged_path, "--frame_info",
+                            sp["val"]["frame_info_path"], "--work_dir",
+                            os.path.join(root, "pub_test"), "--skip_eval"])
+    check(list(result["results"]) == sp["tokens"], "pub_test: tokens out of order")
+    carried = 0  # ids seen on a frame and on the next one of its scene
+    for si in range(EVAL_SCENES):
+        toks = sp["tokens"][si * EVAL_FRAMES:(si + 1) * EVAL_FRAMES]
+        seen = [{a["tracking_id"] for a in result["results"][t]} for t in toks]
+        held = [len(a & b) for a, b in zip(seen, seen[1:])]
+        check(all(held), f"pub_test: scene {si} carries no id from a frame to the next {held}")
+        carried += sum(held)
+    print(f"phase 16: merge_results + pub_test: {sum(map(len, result['results'].values()))} "
+          f"tracks over {n} frames; {carried} ids carried from a frame to the next")
+
+    # cuda against cpu, small configuration, 3 lanes
+    small_base = write_split_config(os.path.join(configs, "car.py"), {},
+                                    os.path.join(root, "small_base.py"), **SERVE_SMALL)
+    sp_s = write_track_split(os.path.join(root, "small"), Config.fromfile(small_base),
+                             n_scenes=4, n_frames=3, seed=18, n_objects=16, n_points=4000,
+                             n_spots=1000)
+    small = write_split_config(small_base, sp_s["val"], os.path.join(root, "small.py"))
+    ck_s = random_checkpoint(Config.fromfile(small), os.path.join(root, "small.pth"), seed=19)
+    runs = {d: eval_cli.main(["--config", small, "--checkpoint", ck_s, "--batch", "3",
+                              "--work_dir", os.path.join(root, f"small_{d}")]
+                             + (["--cpu"] if d == "cpu" else []))
+            for d in ("cuda", "cpu")}
+    k = same_result(runs["cuda"], runs["cpu"], "small config, 3 lanes, cuda vs cpu",
+                    score="ref_detection_score")
+    check(k > 0, "small config: no annotation")
+    print(f"phase 16: small configuration, 3 lanes, eval CLI on cuda == on cpu ({k} "
+          f"annotations: the same keys and values, ref_detection_score within 1e-4)")
+
+    # the eval loop's time over the split, its host split, a profiled pass
+    loop_runs, splits = [], []
+    for _ in range(TIMED_RUNS):
+        timings = {}
+        t0 = time.perf_counter()
+        run_affinity_eval_batched(model, build_dataset(cfg, "val"), batch=EVAL_LANES,
+                                  timings=timings)
+        loop_runs.append(n / (time.perf_counter() - t0))
+        splits.append({k: v / n * 1e3 for k, v in timings.items()})
+    # a step from host arrays must not wait for the card
+    lanes = EvalLanes(model, EVAL_LANES)
+    n_currs = [len(s["cls_det_boxes"]) for s in firsts]
+    host1 = {k: v[None] for k, v in host8.items()}
+    syncs = sync_calls(lambda: lanes.step_chunk(host1, [[True] * EVAL_LANES], [n_currs]))
+    check(not syncs, f"an eval step from host arrays synchronised with the card: {syncs}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_affinity_eval_batched(model, build_dataset(cfg, "val"), batch=EVAL_LANES)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    kernels_ms = sorted(((e.self_device_time_total / 1e3 / steps, e.count / steps, e.key)
+                         for e in events if e.device_type == cuda and not e.is_user_annotation
+                         and e.self_device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in kernels_ms) * steps / n
+    spans = {e.key: round(e.cpu_time_total / 1e3 / steps, 3) for e in events
+             if e.key.startswith("step.") and e.device_type != cuda}
+    split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    fps = statistics.median(loop_runs)
+    print(f"phase 16: eval loop, {TIMED_RUNS} runs of {n} frames at {EVAL_LANES} lanes (f32 "
+          f"trunk, full car config): {[round(x, 3) for x in loop_runs]} frames/s (median "
+          f"{fps:.3f}); host ms per frame (median) read {split['read']:.3f}, step "
+          f"{split['step']:.3f}, assemble {split['assemble']:.3f}; profiled pass: wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms per frame ({100 * busy / wall:.1f}%) "
+          f"({smi})")
+    print(f"  host ms per step in the step's spans {spans}; a step from host arrays "
+          f"synchronised {len(syncs)} times; device ms per step, launches per step, kernel:")
+    for ms, count, key in kernels_ms[:8]:
+        print(f"    {ms:9.3f} {count:9.1f}  {key[:100]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, launches_par, gather, dict(
+        frames_per_s=fps, frames_per_s_runs=loop_runs, host_ms_per_frame=split,
+        host_ms_per_frame_runs=splits, profiled_wall_ms_per_frame=wall,
+        device_busy_ms_per_frame=busy, step_spans_ms=spans, syncs_per_step=len(syncs),
+        lane_sets=lane_sets, voxels_per_lane=voxels, annotations=len(flat), flags=flags,
         top_kernels=[{"ms": ms, "launches": c, "name": k} for ms, c, k in kernels_ms[:8]])
 
 
@@ -1274,6 +1496,10 @@ def main() -> int:
     print(f"phase 15: serving loop {serving['frames_per_s']:.3f} frames/s (f32) beside phase "
           f"11's step alone {fps_nop:.3f} frames/s (bf16 bench frame)")
 
+    # 16. the official per-class eval flow
+    (path_launches[f"16: eval CLI, {EVAL_LANES} lanes"], path_launches["16: eval CLI, parity"],
+     gather_paths[EVAL_LABEL], eval_flow) = phase_eval(kernels, smi)
+
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
                              "shasta_tpu/ops/pallas/block_conv.py:117", "B=1 frame with plans"),
            "keyed_conv": ("shasta_tpu_torch/csrc/window_conv.cu",
@@ -1328,6 +1554,7 @@ def main() -> int:
                       "lanes4_frames_per_s": fps4, "lanes4_frames_per_s_runs": sps_runs,
                       "classes7_frames_per_s": fps7, "classes7_frames_per_s_runs": fps7_runs,
                       "classes7_peak_device_gib": peak_gb, "serving": serving,
+                      "eval_flow": eval_flow,
                       "card": smi, "host": host,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out_kernels}))

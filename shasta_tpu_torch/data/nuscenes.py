@@ -172,6 +172,15 @@ def _remove_close(points: np.ndarray, radius: float = 1.0) -> np.ndarray:
     return points[~close]
 
 
+def choose_sweeps(info: dict, nsweeps: int, rng: np.random.Generator) -> np.ndarray:
+    """The sweeps a frame's cloud takes: nsweeps - 1 of info's, drawn
+    without replacement (a frame with no sweep draws nothing)."""
+    sweeps = info.get("sweeps", [])
+    if not sweeps:
+        return np.zeros((0,), np.int64)
+    return rng.choice(len(sweeps), min(nsweeps - 1, len(sweeps)), replace=False)
+
+
 def load_sweep_points(info: dict, nsweeps: int, rng: np.random.Generator) -> np.ndarray:
     """Key frame + (nsweeps-1) randomly chosen transformed sweeps.
 
@@ -183,8 +192,7 @@ def load_sweep_points(info: dict, nsweeps: int, rng: np.random.Generator) -> np.
     clouds = [points]
     sweeps = info.get("sweeps", [])
     if sweeps:
-        chosen = rng.choice(len(sweeps), min(nsweeps - 1, len(sweeps)), replace=False)
-        for i in chosen:
+        for i in choose_sweeps(info, nsweeps, rng):
             sw = sweeps[i]
             p = _remove_close(read_nusc_points(sw["lidar_path"]))
             tm = np.asarray(sw["transform_matrix"])
@@ -388,6 +396,41 @@ class NuScenesTrackDataset:
                 out[prefix + "num_points"] = n
                 out[prefix + "voxels_valid"] = m
         return out
+
+    def metadata(self) -> list[dict]:
+        """Every index's sample without its points, as a read of indices 0,
+        1, ... in order makes it, each with the generator state its index
+        starts from ("rng_state"): `read_at(i, that state)` then gives index
+        i's sample bit for bit as the in-order read does, in any order of
+        indices, and a split never has to be held in memory whole. The
+        point pipeline's draws are replayed without reading a cloud: in
+        test mode they are the sweep choices alone, which depend only on the
+        sweep counts. Leaves the generator where the in-order read would."""
+        if not self.test_mode:
+            raise ValueError("metadata replays the point pipeline of test mode only "
+                             "(training's augmentation draws depend on the clouds)")
+        load, self.load_points = self.load_points, False
+        out = []
+        try:
+            for i in range(len(self)):
+                state = self._rng.bit_generator.state
+                sample = self[i]
+                if load:  # the frame's and its prev frame's sweep choices
+                    prev = sample["prev_token"]
+                    info = self._infos[i]
+                    for inf in (info, self._infos[self._token_to_idx[prev]] if prev else info):
+                        choose_sweeps(inf, self.pipeline.nsweeps, self._rng)
+                sample["rng_state"] = state
+                out.append(sample)
+        finally:
+            self.load_points = load
+        return out
+
+    def read_at(self, idx: int, rng_state: dict) -> dict[str, Any]:
+        """Index idx's sample read from the generator state `rng_state` (one
+        of `metadata`'s)."""
+        self._rng.bit_generator.state = rng_state
+        return self[idx]
 
 
 ARRAY_KEYS = (

@@ -161,7 +161,8 @@ def write_track_split(root, cfg, n_scenes: int = 2, n_frames: int = 8, seed: int
     (80% around the scene's n_spots static ground spots, 20% on the
     objects); it lists sweeps_per_frame sweeps (default nsweeps) from a
     pool of nsweeps + 2 sweep files per scene, each with its own small
-    transform and time lag. Returns {"val": the dataset kwargs of the
+    transform and time lag. Frames are 0.5 s apart and scenes follow one
+    another in time. Returns {"val": the dataset kwargs of the
     split, "gt_info_dir": ..., "tokens": the frame tokens in order}."""
     rng = np.random.default_rng(seed)
     root = os.path.abspath(str(root))
@@ -200,7 +201,9 @@ def write_track_split(root, cfg, n_scenes: int = 2, n_frames: int = 8, seed: int
                          "time_lag": 0.05 * (k + 1)})
         stoks = [f"s{si}f{t}" for t in range(n_frames)]
         for t, tok in enumerate(stoks):
-            ts = 500_000 * (t + 1)
+            # 2 Hz frames; each scene starts 10 s after the one before ends,
+            # so the frames of a split sort by timestamp scene by scene
+            ts = 500_000 * (t + 1) + si * (n_frames + 20) * 500_000
             objs = []
             for o in range(n_objects):
                 name, cat, size, _ = _CLASSES[kinds[o]]

@@ -89,6 +89,10 @@ class StepOutput:
             self._event.record()
         return self
 
+    def array(self) -> np.ndarray:
+        """The packed outputs as a host array (waits for their copy)."""
+        return self._arr()
+
     def _arr(self) -> np.ndarray:
         if self._np is None:
             if self._host is not None:

@@ -32,6 +32,7 @@ import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from .device import resolve_device
@@ -100,20 +101,26 @@ STAGES = ("down1", "down2", "down3", "extra")
 def stage_sets(run) -> list[dict]:
     """The four strided output sets of the unplanned trunk pass `run()`
     makes: per stage its name, its distinct outputs before the cap, the
-    cap, the set it keeps (coords, valid) and its geometry (input shape,
-    kernel, stride, padding). A set larger than its cap
-    keeps its cap's smallest keys, as host plans do (plans.py), so the
-    routes build the same sets either way."""
+    cap, the set it keeps (coords, valid), its geometry (input shape,
+    kernel, stride, padding) and per frame of the batch its distinct
+    outputs and those kept ("lane_distinct", "lane_kept"). A set larger
+    than its cap keeps its cap's smallest keys, as host plans do
+    (plans.py), so the routes build the same sets either way; keys are
+    batch-major, so those are the first frames'."""
     with recorded("strided_output_set") as calls, torch.no_grad():
         run()
     out = []
     for name, args in zip(STAGES, calls["strided_output_set"]):
         st, kernel, stride, padding, cap = args
-        cand, _ = sp._strided_candidates(st, kernel, stride, padding)
+        cand, out_shape = sp._strided_candidates(st, kernel, stride, padding)
+        uniq = torch.unique(cand[cand != SENTINEL]).long()
+        lane = torch.div(uniq, int(np.prod(out_shape)) + 1, rounding_mode="floor")
         coords, valid, _ = sp.strided_output_set(*args)
-        out.append(dict(name=name, distinct=int(torch.unique(cand[cand != SENTINEL]).numel()),
-                        cap=cap, coords=coords, valid=valid,
-                        geometry=(st.shape, kernel, stride, padding)))
+        B = st.batch_size
+        out.append(dict(name=name, distinct=int(uniq.numel()), cap=cap, coords=coords,
+                        valid=valid, geometry=(st.shape, kernel, stride, padding),
+                        lane_distinct=torch.bincount(lane, minlength=B).tolist(),
+                        lane_kept=torch.bincount(coords[valid, 0].long(), minlength=B).tolist()))
     return out
 
 

@@ -225,3 +225,47 @@ def test_block_extract_matches_its_plain_version_on_the_card():
             torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5, msg=str(tag))
             assert torch.equal(block_extract(**args, **kw), got), tag
             assert got[tile:2 * tile].abs().max() == 0, tag
+
+
+@pytest.mark.gpu
+def test_eval_step_8_lanes_cuda_equals_cpu():
+    """Two 8-lane steps of the batched eval (EvalLanes, the step of
+    `tools.eval`) on cuda equal the same steps on cpu at a small config:
+    decision flags exact, fn_ref and ref at 1e-4. The second step scores
+    each lane against its carried descriptors; lanes 6 and 7 idle on it
+    (reset, no dets) as the eval loop's idle lanes do."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from shasta_tpu_torch.convert import load_jax_variables, random_jax_variables
+    from shasta_tpu_torch.data.synthetic import make_batch
+    from shasta_tpu_torch.infer import FRAME_KEYS
+    from shasta_tpu_torch.models import ShastaConfig, ShastaModel
+    from shasta_tpu_torch.tracker.runner import EvalLanes
+
+    lanes = 8
+    cfg = ShastaConfig(max_obj=10, grid_shape=(41, 80, 80), pc_start=(-3.0, -3.0),
+                       cap_conv2=8000, cap_conv3=4000, cap_conv4=2000, cap_extra=2000)
+    steps = [{k: np.concatenate([make_batch(cfg, num_voxels_cap=2500, n_dets=7,
+                                            seed=10 * lane + t)[k] for lane in range(lanes)])
+              for k in FRAME_KEYS} for t in range(2)]
+    resets = [[True] * lanes, [False] * 6 + [True] * 2]
+    n_currs = [[7] * lanes, [7] * 6 + [0] * 2]
+    rows = {}
+    for d in ("cuda", "cpu"):
+        model = ShastaModel(cfg, device=resolve_device(d))
+        load_jax_variables(model, random_jax_variables(model, seed=1))
+        sd = model.state_dict()  # a decisive head, so that decisions fire
+        sd["aff.10.weight"] *= 10.0
+        sd["aff.10.bias"][-2:] += 5.0
+        model.load_state_dict(sd)
+        step = EvalLanes(model, lanes)
+        rows[d] = [step.step_chunk({k: v[None] for k, v in f.items()}, [r], [n]).array()[0]
+                   for f, r, n in zip(steps, resets, n_currs)]
+    for t, (got, want) in enumerate(zip(rows["cuda"], rows["cpu"])):
+        assert got.shape == (lanes, 6, 10)
+        flags = [0, 1, 3, 4]  # dead, fn, keep, newborn
+        assert np.array_equal(got[:, flags], want[:, flags]), t
+        np.testing.assert_allclose(got[:, [2, 5]], want[:, [2, 5]], atol=1e-4, rtol=0)
+    assert rows["cpu"][1][:, [0, 1, 4]].any()  # some dead, fn or newborn flag fired

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the PyTorch + CUDA port and drive its serving step on one card.
+"""Build the PyTorch + CUDA port and drive its serving and training steps on one card.
 
     python3 chip_smoke.py
 
@@ -108,11 +108,29 @@ Phases (any failure ends the run with a non-zero exit code):
      configuration with 3 lanes (annotations equal, ref_detection_score
      within 1e-4), the eval loop's frames/s (three runs) with its host split
      per frame (read, step, assemble), the device busy share of one profiled
-     pass and no synchronisation in an 8-lane step fed from host arrays.
+     pass and no synchronisation in an 8-lane step fed from host arrays;
+  17. train on the card (phase_training): a labelled synthetic train split
+     (write_track_split(split="train"), 4 scenes x 6 frames at
+     configs/nusc/car.py as it stands: 4 pairs a step, the doubled batch of
+     8 frames under caps 100k/50k/25k/25k, f32 trunk) and random weights
+     given as --checkpoint; `tools.train.main` for one epoch (12
+     sorted_lookup + 21 gather_conv per step, counted, nothing else; finite
+     losses; backbone and neck bit-equal before and after, shared conv and
+     head moved; epoch_1.pth loads back; one log row per step); the train
+     step's and a cache_features batch's 12 lookups and 21 f32 convs against
+     their plain versions, and each stage's set per frame of the 8-frame
+     batch against its cap; at a small configuration one step on cuda and
+     on cpu, standard and bn_train, and a freeze_bev=False step that
+     launches no kernel; `tools.cache_features --batch 8` (12 + 21 per
+     batch, counted) and `tools.train --cached_features` for one epoch (no
+     launch), the cached loss equal to the full loss at caps that hold
+     every set; the train loop's pairs/s (waiting for the loader and the
+     step, per step), one profiled step (device busy, top kernels, peak
+     memory), the cached loop's pairs/s and the cache's frames/s.
 The line before the last is {"kernels": [...]} (launches per main path
-from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15 and 16, each
-counted from 0 just before it; times from phases 3-3d, 8, 15 and 16); the
-last is {"ok": true, "device": {...}}. Imports nothing of JAX or of the
+from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16 and 17,
+each counted from 0 just before it; times from phases 3-3d, 8 and 15-17);
+the last is {"ok": true, "device": {...}}. Imports nothing of JAX or of the
 JAX package.
 """
 from __future__ import annotations
@@ -1237,6 +1255,280 @@ def phase_eval(kernels, smi):
         top_kernels=[{"ms": ms, "launches": c, "name": k} for ms, c, k in kernels_ms[:8]])
 
 
+TRAIN_SCENES, TRAIN_FRAMES, TRAIN_BATCH = 4, 6, 8
+TRAIN_LABEL, CACHE_LABEL = "train step", "cache_features batch"
+# the small geometry of phase 17e, and caps that hold every set of its two
+# pairs (four frames): each stage's output grid x 4
+TRAIN_SMALL_WHOLE = dict(SMALL, cap_conv2=4 * 21 * 40 * 40, cap_conv3=4 * 11 * 20 * 20,
+                         cap_conv4=4 * 5 * 10 * 10, cap_extra=4 * 2 * 10 * 10)
+
+
+def small_pairs(cfg, seed):
+    """Two seeded frame pairs of a small configuration with GT, box centres
+    on its map."""
+    from shasta_tpu_torch.data.synthetic import make_batch
+
+    b = make_batch(cfg, 2, 2500, n_dets=7, with_gt=True, seed=seed)
+    span = cfg.voxel_size[0] * cfg.grid_shape[2] * 0.9
+    for key in ("det_boxes", "prev_det_boxes"):
+        b[key][:, :, :2] = cfg.pc_start[0] + (b[key][:, :, :2] + 50.0) / 100.0 * span
+    return b
+
+
+def small_step(cfg, batch, dev, lr, freeze_bev=True, **kw):
+    """One train step of a small model (seeded random weights) on `dev`:
+    (loss, state_dict on the host, the trunk's route)."""
+    from shasta_tpu_torch.convert import load_jax_variables, random_jax_variables
+    from shasta_tpu_torch.models import ShastaModel
+    from shasta_tpu_torch.train import loop
+
+    m = ShastaModel(cfg, device=dev)
+    load_jax_variables(m, random_jax_variables(m, seed=3))
+    tx = loop.make_optimizer(m, lr, 1e-2, freeze_bev=freeze_bev)
+    state, met = loop.make_train_step(m, tx, **kw)(loop.create_train_state(m, tx), batch)
+    return (float(met["loss"]), {k: v.detach().cpu() for k, v in m.state_dict().items()},
+            loop.trunk_route(m))
+
+
+def phase_training(kernels, smi):
+    """Phase 17: train on the card. A labelled synthetic train split
+    (write_track_split(split="train"), configs/nusc/car.py as it stands:
+    4 frame pairs a step, caps 100k/50k/25k/25k over the doubled batch of 8
+    frames, f32 trunk), random weights saved with save_checkpoint and given
+    as --checkpoint; `tools.train.main` for one epoch (12 sorted_lookup + 21
+    gather_conv per step, counted, nothing else; finite losses; backbone and
+    neck bit-equal before and after, shared conv and head moved; epoch_1.pth
+    loads back; one log row per step); the train step's 12 lookups and 21
+    f32 convs against their plain versions (phase_gather_kernels) and each
+    stage's set per frame against its cap; at a small configuration one
+    step on cuda and on cpu, standard and bn_train (loss at rtol 1e-5,
+    parameters within 2*lr, running statistics at rtol 1e-5 of each
+    tensor's scale) and a freeze_bev=False step that launches no kernel;
+    `tools.cache_features` (--batch 8: 12 + 21 per batch, counted) and
+    `tools.train --cached_features` for one epoch (no launch), and at the
+    small configuration with caps that hold every set the cached loss
+    equal to the full loss; then the train loop's pairs/s split per step
+    into waiting for the loader and the step, a profiled step (device busy,
+    top kernels, peak memory), the cached loop's pairs/s and the cache's
+    frames/s. Returns (launches per path, kernel records per path, numbers)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from shasta_tpu_torch.convert import load_jax_variables, random_jax_variables
+    from shasta_tpu_torch.data.loader import DataLoader
+    from shasta_tpu_torch.data.nuscenes import NuScenesTrackDataset, PointPipelineConfig, collate
+    from shasta_tpu_torch.data.synthetic import write_split_config, write_track_split
+    from shasta_tpu_torch.device import upload
+    from shasta_tpu_torch.infer import FRAME_KEYS
+    from shasta_tpu_torch.models import ShastaConfig, ShastaModel
+    from shasta_tpu_torch.probe_b1_routes import stage_sets
+    from shasta_tpu_torch.tools import cache_features, train
+    from shasta_tpu_torch.tools.common import load_model
+    from shasta_tpu_torch.train import loop
+    from shasta_tpu_torch.train.checkpoint import load_checkpoint
+    from shasta_tpu_torch.utils import Config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "work_dirs", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    car = os.path.join(repo, "configs", "nusc", "car.py")
+    dev = "cuda"
+    t0 = time.perf_counter()
+    sp = write_track_split(os.path.join(root, "data"), Config.fromfile(car),
+                           n_scenes=TRAIN_SCENES, n_frames=TRAIN_FRAMES, seed=17, split="train")
+    cfg_path = write_split_config(car, {}, os.path.join(root, "car.py"),
+                                  data={"train": sp["train"]})
+    cfg = Config.fromfile(cfg_path)
+    ckpt = random_checkpoint(cfg, os.path.join(root, "init.pth"), seed=17)
+    n = TRAIN_SCENES * TRAIN_FRAMES
+    B = cfg.data.samples_per_device
+    steps = n // B
+    print(f"phase 17: wrote a labelled {TRAIN_SCENES} x {TRAIN_FRAMES}-frame train split and a "
+          f"random .pth in {time.perf_counter() - t0:.1f} s; {steps} steps of {B} pairs "
+          f"({2 * B} frames through the trunk), {cfg.data.workers} loader threads")
+
+    # b. one epoch of the train CLI, counted
+    wd = os.path.join(root, "work")
+    args = ["--config", cfg_path, "--checkpoint", ckpt, "--work_dir", wd, "--epochs", "1"]
+    out, launches = counted(kernels, lambda: train.main(args))
+    want = {k.__name__: 0 for k in kernels}
+    want.update(sorted_lookup=12 * steps, gather_conv=21 * steps)
+    check(launches == want, f"train CLI: expected 12 sorted_lookup + 21 gather_conv launches "
+                            f"per step, got {launches} for {steps} steps")
+    losses = out["losses"][0]
+    check(len(losses) == steps and all(np.isfinite(losses)), f"train CLI: losses {losses}")
+    with open(os.path.join(wd, "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    check([r["step"] for r in rows] == list(range(steps)), "train CLI: not one log row per step")
+    before = torch.load(ckpt)
+    after = load_checkpoint(os.path.join(wd, "epoch_1.pth"))
+    for k, v in before.items():
+        if k.split(".")[0] in loop.FROZEN_TRUNK_KEYS:
+            check(torch.equal(v, after[k]), f"train CLI: the frozen {k} changed")
+    moved = [k for k in ("shared_conv.0.weight", "aff.0.weight", "fuse_shape.0.weight",
+                         "res_coeff.0.weight", "aug_shape.0.0.weight")
+             if not torch.equal(before[k], after[k])]
+    check(len(moved) == 5, f"train CLI: only {moved} of the trainable parts moved")
+    model = load_model(cfg, os.path.join(wd, "epoch_1.pth"), dev)
+    check(all(torch.equal(v.cpu(), after[k]) for k, v in model.state_dict().items()),
+          "epoch_1.pth does not load back")
+    print(f"phase 17: train CLI, one epoch: {steps} steps, losses "
+          f"{[round(x, 4) for x in losses]}, launches {launches}; route: {out['route']}; "
+          f"backbone and neck bit-equal, {len(moved)} trainable parts moved; epoch_1.pth "
+          f"loads back")
+
+    # c, d. the train step's trunk on its first batch: kernels against their
+    # plain versions, and each stage's set per frame against its cap
+    ds = NuScenesTrackDataset(**dict(cfg.data.train), det_type=list(cfg.det_type),
+                              max_objects=cfg.max_objects, fp_ratio=cfg.fp_ratio,
+                              dead_trk_ratio=cfg.dead_trk_ratio,
+                              pipeline=PointPipelineConfig(**dict(cfg.point_pipeline)), seed=0)
+    host = next(iter(DataLoader(ds, batch_size=B, num_workers=cfg.data.workers, seed=0)))
+    batch = {k: upload(host[k], dev) for k in loop.PAIR_KEYS}
+
+    def trunk():
+        return model.neck(model.backbone(model.pair_tensor(batch)))
+    sets = stage_sets(trunk)
+    frame_sets = {}
+    for st in sets:
+        frame_sets[st["name"]] = dict(cap=st["cap"], distinct=st["lane_distinct"],
+                                      kept=st["lane_kept"])
+        print(f"  {st['name']:6s} cap {st['cap']:7d}: per frame (curr 0-{B - 1}, prev "
+              f"{B}-{2 * B - 1}) distinct {st['lane_distinct']}, kept {st['lane_kept']}")
+    check(all(sum(st["lane_kept"]) <= st["cap"] for st in sets), "a stage kept more than its cap")
+    voxels = [int(v.sum()) for v in host["voxels_valid"]] + [
+        int(v.sum()) for v in host["prev_voxels_valid"]]
+    print(f"  valid voxels per frame {voxels}")
+    gather = {TRAIN_LABEL: phase_gather_kernels(TRAIN_LABEL, trunk)}
+    vox_ds = NuScenesTrackDataset(**cache_features._split_kwargs(cfg, "train"))
+    frames8 = collate([vox_ds[i] for i in range(TRAIN_BATCH)])
+    frame8 = {k: upload(frames8[k], dev) for k in FRAME_KEYS}
+    gather[CACHE_LABEL] = phase_gather_kernels(CACHE_LABEL, lambda: model.bev_single(frame8))
+
+    # e. small configuration: cuda against cpu, standard and bn_train; a
+    # trunk that trains launches nothing
+    small = ShastaConfig(**SMALL)
+    pairs = small_pairs(small, seed=5)
+    lr = 1e-3
+    for bn in (False, True):
+        (l_a, sd_a, _), (l_b, sd_b, _) = (small_step(small, pairs, d, lr, bn_train=bn)
+                                          for d in (dev, "cpu"))
+        check(abs(l_a - l_b) <= 1e-5 * abs(l_b), f"small step bn_train={bn}: loss {l_a} vs {l_b}")
+        for k, v in sd_b.items():
+            if "num_batches" in k:
+                continue
+            tol = 1e-5 * float(v.abs().max()) if "running" in k else 2 * lr
+            err = float((sd_a[k] - v).abs().max())
+            check(err <= tol, f"small step bn_train={bn}: {k} differs by {err} > {tol}")
+        print(f"phase 17: small configuration, one step bn_train={bn}: {dev} == cpu (loss "
+              f"{l_a:.6f} / {l_b:.6f}; parameters within 2*lr, running statistics within "
+              f"1e-5 of their scale)")
+    (l_t, _, route_t), launches_t = counted(kernels, lambda: small_step(
+        small, pairs, dev, lr, freeze_bev=False))
+    check(not any(launches_t.values()) and np.isfinite(l_t),
+          f"a trunk that trains launched {launches_t}")
+    print(f"phase 17: small configuration, freeze_bev=False step on {dev}: loss {l_t:.6f}, "
+          f"launches {launches_t}; route: {route_t}")
+
+    # f. the feature cache and an epoch of cached training, counted
+    cache = os.path.join(root, "cache")
+    res, launches_c = counted(kernels, lambda: cache_features.main(
+        ["--config", cfg_path, "--checkpoint", ckpt, "--split", "train", "--out", cache,
+         "--batch", str(TRAIN_BATCH)]))
+    nb = -(-n // TRAIN_BATCH)
+    want_c = {k.__name__: 0 for k in kernels}
+    want_c.update(sorted_lookup=12 * nb, gather_conv=21 * nb)
+    check(launches_c == want_c and res["batches"] == nb,
+          f"cache_features: expected 12 + 21 launches per batch of {TRAIN_BATCH}, got "
+          f"{launches_c}")
+    check(sorted(os.listdir(cache)) == sorted(t + ".npz" for t in sp["tokens"]),
+          "cache_features: a token's file is missing")
+    wc = os.path.join(root, "cached_work")
+    out_c, launches_ct = counted(kernels, lambda: train.main(
+        ["--config", cfg_path, "--checkpoint", ckpt, "--work_dir", wc, "--epochs", "1",
+         "--cached_features", cache]))
+    check(not any(launches_ct.values()) and all(np.isfinite(out_c["losses"][0]))
+          and len(out_c["losses"][0]) == steps, f"cached train CLI: launches {launches_ct}, "
+                                                f"losses {out_c['losses']}")
+    whole = ShastaConfig(**TRAIN_SMALL_WHOLE)
+    pw = small_pairs(whole, seed=6)
+    m_w = ShastaModel(whole, device=dev)
+    load_jax_variables(m_w, random_jax_variables(m_w, seed=3))
+    t = {k: upload(v, dev) for k, v in pw.items()}
+    with torch.no_grad():
+        feats = {p + "feat": m_w.frame_features({k: t[p + k] for k in FRAME_KEYS}).cpu().numpy()
+                 for p in ("", "prev_")}
+    l_full = small_step(whole, pw, dev, lr)[0]
+    l_cached = small_step(whole, {k: pw[k] for k in ("det_boxes", "prev_det_boxes", "gt")}
+                          | feats, dev, lr, cached=True)[0]
+    check(abs(l_full - l_cached) <= 1e-5 * abs(l_full),
+          f"cached loss {l_cached} != full loss {l_full} at caps that hold every set")
+    print(f"phase 17: cache_features --batch {TRAIN_BATCH}: {n} frames in {nb} batches, launches "
+          f"{launches_c}; cached train CLI: {steps} steps, losses "
+          f"{[round(x, 4) for x in out_c['losses'][0]]}, launches {launches_ct}; small "
+          f"configuration with whole sets: cached loss {l_cached:.6f} == full {l_full:.6f}")
+
+    # g. times: the train loop (a second epoch run, warm), one profiled
+    # step, the cached loop and the cache
+    out2 = train.main(["--config", cfg_path, "--checkpoint", ckpt, "--work_dir",
+                       os.path.join(root, "work2"), "--epochs", "1"])
+    wait, step = np.asarray(out2["wait_s"]) * 1e3, np.asarray(out2["step_s"]) * 1e3
+    pairs_s = B * steps / ((wait.sum() + step.sum()) / 1e3)
+    print(f"phase 17: train loop, {steps} steps of {B} pairs (f32 trunk, full car config): "
+          f"{pairs_s:.3f} pairs/s; ms per step waiting for the loader {np.round(wait, 3).tolist()}"
+          f" (median {np.median(wait):.3f}), in the step {np.round(step, 3).tolist()} (median "
+          f"{np.median(step):.3f}) ({smi})")
+    m_p = load_model(cfg, ckpt, dev)
+    tx = loop.make_optimizer(m_p)
+    st = loop.create_train_state(m_p, tx)
+    step_fn = loop.make_train_step(m_p, tx)
+    step_fn(st, host)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, met = step_fn(st, host)
+        float(met["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    kernels_ms = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in events
+                         if e.device_type == cuda and not e.is_user_annotation
+                         and e.self_device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in kernels_ms)
+    spans = {e.key: round(e.cpu_time_total / 1e3, 3) for e in events
+             if e.key.startswith("train.") and e.device_type != cuda}
+    print(f"phase 17: one profiled train step (4 pairs from memory): wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%), peak device memory {peak:.3f} GiB "
+          f"({smi}); host ms in the spans {spans}; device ms, launches, kernel:")
+    for ms, count, key in kernels_ms[:8]:
+        print(f"    {ms:9.3f} {count:7d}  {key[:100]}")
+    wait_c, step_c = np.asarray(out_c["wait_s"]) * 1e3, np.asarray(out_c["step_s"]) * 1e3
+    pairs_c = B * steps / ((wait_c.sum() + step_c.sum()) / 1e3)
+    cache_s = {k: float(np.sum(res[k])) for k in ("read_s", "trunk_s", "write_s")}
+    frames_s = n / sum(cache_s.values())
+    print(f"phase 17: cached train loop {pairs_c:.3f} pairs/s (ms per step: loader median "
+          f"{np.median(wait_c):.3f}, step median {np.median(step_c):.3f}); cache_features "
+          f"{frames_s:.3f} frames/s (s over {nb} batches: read {cache_s['read_s']:.3f}, trunk and "
+          f"sampling {cache_s['trunk_s']:.3f}, write {cache_s['write_s']:.3f}) ({smi})")
+    shutil.rmtree(root, ignore_errors=True)
+    launches_by = {"17b: train CLI": launches, "17f: cache_features CLI": launches_c,
+                   "17f: cached train CLI": launches_ct}
+    return launches_by, gather, dict(
+        steps=steps, losses=losses, route=out["route"], frame_sets=frame_sets,
+        voxels_per_frame=voxels, train_pairs_per_s=pairs_s, wait_ms=wait.tolist(),
+        step_ms=step.tolist(), profiled_wall_ms=wall, device_busy_ms=busy,
+        peak_device_gib=peak, train_spans_ms=spans,
+        top_kernels=[{"ms": ms, "launches": c, "name": k} for ms, c, k in kernels_ms[:8]],
+        cached_pairs_per_s=pairs_c, cached_wait_ms=wait_c.tolist(),
+        cached_step_ms=step_c.tolist(), cache_frames_per_s=frames_s, cache_s=cache_s)
+
+
 def bound_of(rec) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") of a kernel record's counted
     bytes and operations on the H100 (shasta_tpu_torch.timing)."""
@@ -1500,6 +1792,11 @@ def main() -> int:
     (path_launches[f"16: eval CLI, {EVAL_LANES} lanes"], path_launches["16: eval CLI, parity"],
      gather_paths[EVAL_LABEL], eval_flow) = phase_eval(kernels, smi)
 
+    # 17. training on the card
+    launches17, gather17, training = phase_training(kernels, smi)
+    path_launches.update(launches17)
+    gather_paths.update(gather17)
+
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
                              "shasta_tpu/ops/pallas/block_conv.py:117", "B=1 frame with plans"),
            "keyed_conv": ("shasta_tpu_torch/csrc/window_conv.cu",
@@ -1554,7 +1851,7 @@ def main() -> int:
                       "lanes4_frames_per_s": fps4, "lanes4_frames_per_s_runs": sps_runs,
                       "classes7_frames_per_s": fps7, "classes7_frames_per_s_runs": fps7_runs,
                       "classes7_peak_device_gib": peak_gb, "serving": serving,
-                      "eval_flow": eval_flow,
+                      "eval_flow": eval_flow, "training": training,
                       "card": smi, "host": host,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out_kernels}))

@@ -18,7 +18,7 @@ the JAX dataset, so a sample is bit-identical to the JAX dataset's for the
 same seed. Voxelization runs the port's C++ runtime and raises where the
 library cannot be built (no numpy fallback). The samples are fixed-shape:
 (max_obj, 11) det rows and (V, P, 5) voxels with validity masks.
-CachedFeatureDataset belongs to training and is not ported yet.
+`CachedFeatureDataset` serves training's precomputed BEV descriptors.
 """
 from __future__ import annotations
 
@@ -437,7 +437,36 @@ ARRAY_KEYS = (
     "det_boxes", "prev_det_boxes", "gt",
     "voxels", "coordinates", "num_points", "voxels_valid",
     "prev_voxels", "prev_coordinates", "prev_num_points", "prev_voxels_valid",
+    "feat", "prev_feat",
 )
+
+
+@dataclass
+class CachedFeatureDataset:
+    """Frame-pair dataset over precomputed BEV descriptors (nuscenes.py:
+    412-440 of the JAX package). With the reference's frozen trunk
+    (train.py:184-191) a frame's descriptors never change during affinity
+    training, so tools/cache_features.py stores them once ({token}.npz, key
+    'feat', (max_obj, num_point*C) f32, in either package) and this wrapper
+    serves (boxes, gt, feat, prev_feat) samples: the train step then runs
+    the affinity head alone (make_train_step(cached=True))."""
+
+    base: NuScenesTrackDataset  # built with load_points=False
+    features_path: str
+
+    def __len__(self):
+        return len(self.base)
+
+    def _feat(self, token: str) -> np.ndarray:
+        with np.load(os.path.join(self.features_path, token + ".npz")) as d:
+            return d["feat"].astype(np.float32)
+
+    def __getitem__(self, idx: int) -> dict[str, Any]:
+        s = self.base[idx]
+        s["feat"] = self._feat(s["token"])
+        s["prev_feat"] = (self._feat(s["prev_token"]) if s["prev_token"]
+                          else np.zeros_like(s["feat"]))
+        return s
 
 
 def collate(samples: list[dict[str, Any]]) -> dict[str, Any]:

@@ -5,8 +5,8 @@
   tests feed one batch to both packages). `cfg` needs max_obj, grid_shape
   and num_input_features.
 - `write_track_split`: a preprocessed split on disk, in the files the
-  nuScenes dataset reader (data/nuscenes.py) reads; `write_split_config`
-  points a config at it.
+  nuScenes dataset reader (data/nuscenes.py) reads, a train split with its
+  GT affinity labels; `write_split_config` points a config at it.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import pickle
 import numpy as np
 
 from ..core.boxes import yaw_to_quaternion
+from ..preprocessing.gt_shasta import frame_gt_matrices, mot_rows, write_frame_labels
 
 
 def make_batch(
@@ -146,7 +147,7 @@ def _cloud(spots, objects, n, rng) -> np.ndarray:
 
 def write_track_split(root, cfg, n_scenes: int = 2, n_frames: int = 8, seed: int = 0,
                       n_objects: int = 40, n_points: int = 40000, n_spots: int = 12000,
-                      sweeps_per_frame: int | None = None) -> dict:
+                      sweeps_per_frame: int | None = None, split: str = "val") -> dict:
     """Write a synthetic preprocessed split in the files NuScenesTrackDataset
     reads, made from `seed` with numpy: the infos pickle (lidar paths and
     sweeps), the frame-info JSON, per-frame sensor (13-float rows) and class
@@ -162,19 +163,30 @@ def write_track_split(root, cfg, n_scenes: int = 2, n_frames: int = 8, seed: int
     objects); it lists sweeps_per_frame sweeps (default nsweeps) from a
     pool of nsweeps + 2 sweep files per scene, each with its own small
     transform and time lag. Frames are 0.5 s apart and scenes follow one
-    another in time. Returns {"val": the dataset kwargs of the
-    split, "gt_info_dir": ..., "tokens": the frame tokens in order}."""
+    another in time.
+
+    split "val" gives a test-mode split; "train" also writes each frame's
+    GT affinity labels (gt_shasta/cp/individual_frames/{token}.npz,
+    frame_gt_matrices over all its detections and its GT objects, paired
+    with the scene's previous frame) and its kwargs carry labels_path and
+    test_mode=False. One split per root (the lidar files share a folder).
+    Returns {split: the dataset kwargs, "gt_info_dir": ..., "tokens": the
+    frame tokens in order}."""
     rng = np.random.default_rng(seed)
     root = os.path.abspath(str(root))
     pp = cfg.point_pipeline
     lo, hi = np.asarray(pp["pc_range"][:3]), np.asarray(pp["pc_range"][3:])
     nsweeps = int(pp["nsweeps"])
     n_sw = nsweeps if sweeps_per_frame is None else sweeps_per_frame
-    split = os.path.join(root, "val_2hz")
-    dirs = {k: os.path.join(split, *p) for k, p in (
+    if split not in ("val", "train"):
+        raise ValueError(f"split must be 'val' or 'train', got {split!r}")
+    split_dir = os.path.join(root, f"{split}_2hz")
+    dirs = {k: os.path.join(split_dir, *p) for k, p in (
         ("det", ("detections", "cp", "sensor_individual_frames")),
         ("cls", ("detections", "cp", "cls_individual_frames")),
         ("gt", ("gt_info", "individual_frames")))}
+    if split == "train":
+        dirs["labels"] = os.path.join(split_dir, "gt_shasta", "cp", "individual_frames")
     dirs["lidar"] = os.path.join(root, "lidar")
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
@@ -200,6 +212,7 @@ def write_track_split(root, cfg, n_scenes: int = 2, n_frames: int = 8, seed: int
             pool.append({"lidar_path": path, "transform_matrix": tm.tolist(),
                          "time_lag": 0.05 * (k + 1)})
         stoks = [f"s{si}f{t}" for t in range(n_frames)]
+        prev = (None,) * 5  # the previous frame's (dets, types, GT, GT types, ids)
         for t, tok in enumerate(stoks):
             # 2 Hz frames; each scene starts 10 s after the one before ends,
             # so the frames of a split sort by timestamp scene by scene
@@ -253,17 +266,28 @@ def write_track_split(root, cfg, n_scenes: int = 2, n_frames: int = 8, seed: int
             for key, obj in (("det", rows), ("cls", cls), ("gt", gt)):
                 with open(os.path.join(dirs[key], tok + ".json"), "w") as f:
                     json.dump(obj, f)
+            if split == "train":
+                # the rows write_detections / write_gt_info would hold
+                curr = (mot_rows([c["translation"] + c["size"] + c["rotation"]
+                                  + [c["detection_score"]] for c in cls]),
+                        [c["detection_name"] for c in cls], mot_rows(gt["frame_bboxes"]),
+                        gt["frame_types"], gt["frame_ids"])
+                write_frame_labels(os.path.join(dirs["labels"], tok + ".npz"),
+                                   *frame_gt_matrices(*prev, *curr))
+                prev = curr
         tokens += stoks
 
-    info_path = os.path.join(root, "infos_val.pkl")
+    info_path = os.path.join(root, f"infos_{split}.pkl")
     with open(info_path, "wb") as f:
         pickle.dump(infos, f)
-    frame_info_path = os.path.join(root, "val_frame_info.json")
+    frame_info_path = os.path.join(root, f"{split}_frame_info.json")
     with open(frame_info_path, "w") as f:
         json.dump(frame_info, f)
-    val = dict(info_path=info_path, det_path=dirs["det"], cls_info_path=dirs["cls"],
-               frame_info_path=frame_info_path, test_mode=True)
-    return {"val": val, "gt_info_dir": dirs["gt"], "tokens": tokens}
+    kwargs = dict(info_path=info_path, det_path=dirs["det"], cls_info_path=dirs["cls"],
+                  frame_info_path=frame_info_path, test_mode=split == "val")
+    if split == "train":
+        kwargs["labels_path"] = dirs["labels"]
+    return {split: kwargs, "gt_info_dir": dirs["gt"], "tokens": tokens}
 
 
 def write_split_config(config_path: str, val: dict, out_path: str, **overrides) -> str:

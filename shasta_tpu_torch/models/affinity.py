@@ -147,7 +147,10 @@ class AffinityNet(nn.Module):
         dc = torch.cos(boxes_t[:, :, None, 6]) - torch.cos(boxes_d[:, None, :, 6])
         ds = torch.sin(boxes_t[:, :, None, 6]) - torch.sin(boxes_d[:, None, :, 6])
         rot_sq = dc * dc + ds * ds
-        residual_rot = torch.where(rot_sq > 0, torch.sqrt(rot_sq), 0.0)
+        # safe sqrt (affinity.py:208-213): the same forward, and a zero grad
+        # at equal yaws where d/dx sqrt(0) would make the backward NaN
+        residual_rot = torch.where(rot_sq > 0, torch.sqrt(torch.where(rot_sq > 0, rot_sq, 1.0)),
+                                   0.0)
         residual_hand = residual_dist + residual_dim + residual_rot
 
         residual_shape = self.fuse_shape(feat_t, feat_d)[..., 0]

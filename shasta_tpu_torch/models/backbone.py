@@ -15,6 +15,12 @@ Two routes:
 - without plans (any B): every index is built on the device through
   `sorted_lookup` (12 launches per step) and all 21 convs run
   `gather_conv`, the JAX B > 1 route (backbone.py:217-226).
+
+The kernels have no backward. A trunk whose parameters require grad, with
+grad mode on, runs the route without plans on the kernels' plain versions,
+which autograd differentiates (the JAX XLA route, use_pallas_gather=False).
+In train mode the BNs normalise with the valid rows' batch statistics and
+update their running statistics (training with bn_train).
 """
 from __future__ import annotations
 
@@ -25,15 +31,24 @@ from ..ops import sparse as sp
 
 
 class SparseBN(nn.BatchNorm1d):
-    """BatchNorm1d (eps 1e-3) over the valid rows, running statistics
-    (inference only)."""
+    """BatchNorm1d (eps 1e-3) over the valid rows. Eval mode: the running
+    statistics. Train mode (backbone.py:40-53): the valid rows' mean and
+    biased variance, and the running statistics move 0.01 of the way to
+    them; with `sync` their parts are summed over the process group first."""
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, sync: bool = False):
         super().__init__(num_features, eps=1e-3, momentum=0.01)
+        self.sync = sync
 
     def forward(self, feats, valid):
-        return sp.masked_batch_norm(feats, valid, self.weight, self.bias,
-                                    self.running_mean, self.running_var,
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean, var = sp.masked_batch_stats(feats, valid, self.sync)
+            with torch.no_grad():
+                self.running_mean.mul_(1 - self.momentum).add_(mean * self.momentum)
+                self.running_var.mul_(1 - self.momentum).add_(var * self.momentum)
+        return sp.masked_batch_norm(feats, valid, self.weight, self.bias, mean, var,
                                     self.eps)
 
 
@@ -134,7 +149,7 @@ class SparseBackbone(nn.Module):
     """Returns the dense BEV map NCHW (B, C*D, H, W), channel c*D + d."""
 
     def __init__(self, num_input_features: int = 5, dtype=None,
-                 caps=(60000, 30000, 15000, 15000)):
+                 caps=(60000, 30000, 15000, 15000), bn_sync: bool = False):
         super().__init__()
         self.dtype = dtype  # torch.bfloat16: conv inputs in bf16, f32 sums
         # output-set caps of conv2, conv3, conv4 and extra_conv (unplanned route)
@@ -149,6 +164,9 @@ class SparseBackbone(nn.Module):
         # (3,1,1) stride (2,1,1), no blocks (scn.py:155-161)
         self.extra_conv = StridedConvBNReLU(128, 128, (3, 1, 1), (2, 1, 1),
                                             (0, 0, 0), blocks=0)
+        for m in self.modules():
+            if isinstance(m, SparseBN):
+                m.sync = bn_sync
 
     def _stage0(self, st: sp.SparseTensor, idx0, dt):
         """conv_input and res0, which share one index."""
@@ -177,26 +195,34 @@ class SparseBackbone(nn.Module):
         return self.extra_conv(x, _planned(x, self.extra_conv, plans["ex_keys"],
                                            _keyed_strided(x, self.extra_conv)), dt)
 
-    def _built(self, st: sp.SparseTensor) -> sp.SparseTensor:
+    def _built(self, st: sp.SparseTensor, plain: bool = False) -> sp.SparseTensor:
         """Any B, no plans: every index built on the device through
         sorted_lookup (4 subm triple + 3 strided triple + 1 strided plain
-        + 4 identity compactions) and all 21 convs on gather_conv. The
-        stage-0 table takes a stable argsort; every strided output set is
-        key-sorted, so later tables need none (backbone.py:210-287)."""
+        + 4 identity compactions) and all 21 convs on gather_conv (plain:
+        their plain versions). The stage-0 table takes a stable argsort;
+        every strided output set is key-sorted, so later tables need none
+        (backbone.py:210-287)."""
         dt = self.dtype
         table = sp.key_table(st)
-        x = self._stage0(st, sp.build_subm_index(st, table), dt)
+        x = self._stage0(st, sp.build_subm_index(st, table, plain), dt)
         for stage, cap in zip((self.conv2, self.conv3, self.conv4), self.caps):
-            x = stage(x, sp.build_strided_plan(x, *stage.geometry(), cap, table), dt)
+            x = stage(x, sp.build_strided_plan(x, *stage.geometry(), cap, table, plain), dt)
             table = sp.key_table_presorted(x)
-            x = _blocks(stage, x, sp.build_subm_index(x, table), dt)
+            x = _blocks(stage, x, sp.build_subm_index(x, table, plain), dt)
         return self.extra_conv(x, sp.build_strided_plan(
-            x, *self.extra_conv.geometry(), self.caps[3], table), dt)
+            x, *self.extra_conv.geometry(), self.caps[3], table, plain), dt)
+
+    def trains(self) -> bool:
+        """Whether this call builds a graph through the trunk: grad mode is
+        on and a parameter requires grad (the kernels cannot take part)."""
+        return torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
 
     def forward(self, st: sp.SparseTensor, plans: dict | None = None) -> torch.Tensor:
         """plans: the host plans of a B=1 frame (shasta_tpu_torch/plans.py),
         or None to build every index on the device."""
-        x = self._built(st) if plans is None else self._planned(st, plans)
+        if plans is not None and self.trains():
+            raise ValueError("host plans serve inference: a trunk that trains runs without")
+        x = self._built(st, self.trains()) if plans is None else self._planned(st, plans)
         dense = sp.to_dense(x)  # (B, D, H, W, C)
         B, D, H, W, C = dense.shape
         # torch views (N, C, D, H, W) as (N, C*D, H, W): channel c*D + d

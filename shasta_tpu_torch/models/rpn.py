@@ -7,7 +7,8 @@ shared_conv = [Conv2d 3x3 with bias, BN, ReLU].
 Neck BN eps is 1e-3; the shared conv's BN keeps torch's default 1e-5
 (rpn.py:156-166). With `dtype` bf16 the convolutions take bf16 inputs and
 weights and the BNs run in f32, as flax's Conv(dtype=bf16) +
-BatchNorm(dtype=f32) do in the JAX package.
+BatchNorm(dtype=f32) do in the JAX package. In train mode the BNs take
+flax's batch statistics and update (`batch_norm`).
 """
 from __future__ import annotations
 
@@ -16,6 +17,24 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def batch_norm(m: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """m in eval mode: its running statistics. In train mode flax's
+    BatchNorm (rpn.py:40-45, 160-165): the batch mean and the biased
+    variance max(0, E[x^2] - mean^2) over (N, H, W), and the running
+    statistics move m.momentum of the way to them (0.01 for the neck, 0.1
+    for the shared conv: flax 0.99 and 0.9). torch's BatchNorm2d would move
+    the running variance towards the unbiased one instead."""
+    if not m.training:
+        return m(x)
+    mean = x.mean((0, 2, 3))
+    var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        m.running_mean.mul_(1 - m.momentum).add_(mean * m.momentum)
+        m.running_var.mul_(1 - m.momentum).add_(var * m.momentum)
+    inv = torch.rsqrt(var + m.eps) * m.weight
+    return (x - mean[:, None, None]) * inv[:, None, None] + m.bias[:, None, None]
 
 
 def _run(seq: nn.Sequential, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -30,7 +49,7 @@ def _run(seq: nn.Sequential, x: torch.Tensor, dtype) -> torch.Tensor:
             else:
                 x = F.conv2d(x, w, b, m.stride, m.padding)
         elif isinstance(m, nn.BatchNorm2d):
-            x = m(x.float())
+            x = batch_norm(m, x.float())
         else:
             x = m(x)
     return x

@@ -4,8 +4,9 @@ affinity_step).
 
 Inputs are fixed-shape: detections padded to max_obj rows of 11 features
 [x, y, z, w, l, h, yaw, vx, vy, dt, score], voxels padded to a static
-capacity with a validity mask. Inference only: the module is built in
-eval mode and never leaves it.
+capacity with a validity mask. The module is built in eval mode with
+every parameter frozen, as serving runs it; training (train/loop.py) turns
+on the grads and BN modes it needs.
 """
 from __future__ import annotations
 
@@ -43,6 +44,9 @@ class ShastaConfig:
     cap_conv3: int = 30000
     cap_conv4: int = 15000
     cap_extra: int = 15000
+    # set: the trunk's BN statistics are summed over the process group in
+    # train mode (the JAX psum axis; any name means the default group)
+    bn_axis_name: str | None = None
     dtype: torch.dtype | None = None  # torch.bfloat16 trunk, None = f32
 
 
@@ -61,41 +65,51 @@ class ShastaModel(AffinityNet):
         self.cfg = cfg
         self.backbone = SparseBackbone(
             cfg.num_input_features, dtype=cfg.dtype,
-            caps=(cfg.cap_conv2, cfg.cap_conv3, cfg.cap_conv4, cfg.cap_extra))
+            caps=(cfg.cap_conv2, cfg.cap_conv3, cfg.cap_conv4, cfg.cap_extra),
+            bn_sync=cfg.bn_axis_name is not None)
         self.neck = RPN(dtype=cfg.dtype)
         self.shared_conv = SharedConv(512, cfg.share_conv_channel, dtype=cfg.dtype)
         self.device = resolve_device(device)
         self.to(self.device).eval()
         self.requires_grad_(False)
 
-    def bev_maps(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """Shared-conv BEV maps (B, H, W, 64) of the curr and the prev frame
-        of B frame pairs, run through the trunk as ONE sparse batch of 2B
-        (curr samples 0..B-1, prev samples B..2B-1), every index built on
-        the device. batch: voxels (B, V, P, 5), num_points (B, V),
-        coordinates (B, V, 3) [z, y, x], voxels_valid (B, V) and their
-        prev_* mirrors, tensors on the model's device."""
+    def pair_tensor(self, batch: dict) -> sp.SparseTensor:
+        """The curr and the prev frame of B frame pairs as ONE sparse batch
+        of 2B (curr samples 0..B-1, prev samples B..2B-1). batch: voxels (B,
+        V, P, 5), num_points (B, V), coordinates (B, V, 3) [z, y, x],
+        voxels_valid (B, V) and their prev_* mirrors, tensors on the model's
+        device."""
         cfg = self.cfg
         B = batch["voxels"].shape[0]
         parts = [_voxel_rows(cfg, *(batch[p + k] for k in
                                     ("voxels", "num_points", "coordinates", "voxels_valid")),
                              b_off=i * B) for i, p in enumerate(("", "prev_"))]
-        st = sp.SparseTensor(*(torch.cat(t) for t in zip(*parts)), tuple(cfg.grid_shape),
-                             2 * B)
-        bev = _trunk_from_sparse(self.backbone, self.neck, self.shared_conv, st, None)
+        return sp.SparseTensor(*(torch.cat(t) for t in zip(*parts)), tuple(cfg.grid_shape),
+                               2 * B)
+
+    def bev_maps(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """Shared-conv BEV maps (B, H, W, 64) of the curr and the prev frame
+        of B frame pairs, through the trunk once (`pair_tensor`), every
+        index built on the device."""
+        B = batch["voxels"].shape[0]
+        bev = _trunk_from_sparse(self.backbone, self.neck, self.shared_conv,
+                                 self.pair_tensor(batch), None)
         return bev[:B], bev[B:]
 
     def forward(self, batch: dict):
         """The two-frame forward (the JAX ShastaModel.__call__): both BEV
-        maps from `bev_maps`, each frame's boxes sampled on its own map, then
-        the affinity head -> (matched1 (B, N, N+2), matched2 (B, N+2, N)).
-        batch: the `bev_maps` arrays plus det_boxes and prev_det_boxes
-        (B, N, 11), numpy arrays or tensors."""
-        c = self.cfg
+        maps from `bev_maps`, then `pair_head` -> (matched1 (B, N, N+2),
+        matched2 (B, N+2, N)). batch: the `bev_maps` arrays plus det_boxes
+        and prev_det_boxes (B, N, 11), numpy arrays or tensors."""
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        return self.pair_head(*self.bev_maps(batch), batch)
+
+    def pair_head(self, bev: torch.Tensor, prev_bev: torch.Tensor, batch: dict):
+        """Each frame's boxes sampled on its own BEV map (B, H, W, 64), then
+        the affinity head -> (matched1, matched2)."""
+        c = self.cfg
         prev_boxes = batch["prev_det_boxes"][:, :, :7]
         curr_boxes = batch["det_boxes"][:, :, :7]
-        bev, prev_bev = self.bev_maps(batch)
         curr_feat = sample_bev_features(bev, box_points_5(curr_boxes), c.pc_start,
                                         c.voxel_size, c.out_stride)
         prev_feat = sample_bev_features(prev_bev, box_points_5(prev_boxes), c.pc_start,

@@ -30,6 +30,8 @@ import functools
 
 import torch
 
+from . import refuse_autograd
+
 _DTYPES = (torch.float32, torch.bfloat16)
 CO_SUPPORTED = (16, 32, 64, 128)
 K_MAX = 27
@@ -88,6 +90,7 @@ def _launch_fn():
 
 def rulebook_conv(feats: torch.Tensor, nbr: torch.Tensor,
                   weight: torch.Tensor) -> torch.Tensor:
+    refuse_autograd("rulebook_conv", feats, weight)
     if nbr.dim() != 2:
         raise ValueError("nbr must be (M, K)")
     M, K = nbr.shape

@@ -31,6 +31,7 @@ import functools
 
 import torch
 
+from . import refuse_autograd
 from .block_conv import _ptr
 
 GB = 16  # guard rows per base step (shasta_tpu/ops/pallas/block_conv.py:64)
@@ -131,6 +132,7 @@ def block_extract(q: torch.Tensor, bases: torch.Tensor, sg1: torch.Tensor,
                   sg2: torch.Tensor, k2q: torch.Tensor, f2: torch.Tensor,
                   w: torch.Tensor, *, H: int, C: int, tile: int,
                   variant: str) -> torch.Tensor:
+    refuse_autograd("block_extract", f2, w)
     check_args(q, bases, sg1, sg2, k2q, f2, w, H, C, tile, variant)
     if not q.is_cuda:
         return block_extract_plain(q, bases, sg1, sg2, k2q, f2, w, H=H, C=C,

@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from . import refuse_autograd
 from .block_conv import _ptr, check_conv_args, rulebook_conv_plain
 
 # The plain version is the XLA path of ops/sparse.py:217-224: pad a zero
@@ -66,6 +67,7 @@ def _launch_fn():
 
 def gather_conv(feats: torch.Tensor, gather: torch.Tensor,
                 weight: torch.Tensor) -> torch.Tensor:
+    refuse_autograd("gather_conv", feats, weight)
     if gather.dim() != 2:
         raise ValueError("gather must be (M, K)")
     M, K = gather.shape

@@ -36,6 +36,8 @@ import functools
 
 import torch
 
+from . import refuse_autograd
+
 SENTINEL = 2**31 - 1
 MODES = ("plain", "triple", "identity")
 
@@ -99,6 +101,7 @@ def _check(sorted_keys, perm, queries, mode):
 
 def sorted_lookup(sorted_keys: torch.Tensor, perm: torch.Tensor | None,
                   queries: torch.Tensor, mode: str = "plain") -> torch.Tensor:
+    refuse_autograd("sorted_lookup", sorted_keys, perm, queries)
     _check(sorted_keys, perm, queries, mode)
     if not queries.is_cuda:
         return sorted_lookup_plain(sorted_keys, perm, queries, mode)

@@ -36,6 +36,7 @@ import functools
 
 import torch
 
+from . import refuse_autograd
 from .block_conv import _ptr, check_conv_args
 from .lookup import SENTINEL, sorted_lookup_plain
 
@@ -70,6 +71,7 @@ def _launch_fn():
 def keyed_conv(sorted_keys: torch.Tensor, perm: torch.Tensor,
                queries: torch.Tensor, feats: torch.Tensor,
                weight: torch.Tensor) -> torch.Tensor:
+    refuse_autograd("keyed_conv", feats, weight)
     if queries.dim() != 2:
         raise ValueError("queries must be (M, K)")
     V = feats.shape[0]

@@ -19,6 +19,12 @@ Neighbours reach the conv kernels in one of three forms:
   step.
 All are exact for any physical row order.
 
+The unplanned builders take `plain`: True runs every lookup through the
+kernel's plain version (a trunk that trains launches no kernel, the JAX
+XLA route); `sparse_conv` takes the plain gather-matmul, which autograd
+differentiates, whenever its input or weight requires grad. The kernels
+have no backward.
+
 Layout of record at B > 1: global, not per lane. The JAX package's Pallas
 path compacts each strided output set into per-lane slot budgets
 (shasta_tpu/ops/sparse.py:387-470) only so that each lane's table fits
@@ -41,8 +47,8 @@ import torch
 from ..device import const
 from ..plans import tap_offsets
 from .kernels.block_conv import rulebook_conv
-from .kernels.gather_conv import gather_conv
-from .kernels.lookup import SENTINEL, sorted_lookup
+from .kernels.gather_conv import gather_conv, gather_conv_plain
+from .kernels.lookup import SENTINEL, sorted_lookup, sorted_lookup_plain
 from .kernels.window_conv import keyed_conv
 
 
@@ -163,20 +169,21 @@ def decode_strided_keys(out_keys: torch.Tensor, in_shape, kernel, stride,
     return coords, valid, (OZ, OY, OX)
 
 
-def _dx_triples(queries: torch.Tensor, table, V: int) -> torch.Tensor:
+def _dx_triples(queries: torch.Tensor, table, V: int, plain: bool = False) -> torch.Tensor:
     """(M, K) gather rows of query keys whose taps come in unit-spaced dx
     triples (kx = 3): the K/3 centre keys go through one triple-mode
     lookup, then the in-range mask kills a ±1 probe that wrapped into a
     neighbouring row (ops/sparse.py:183-193, :532-539)."""
     sorted_keys, perm = table
-    out = sorted_lookup(sorted_keys, perm, queries[:, 1::3].contiguous(), "triple")
+    lookup = sorted_lookup_plain if plain else sorted_lookup
+    out = lookup(sorted_keys, perm, queries[:, 1::3].contiguous(), "triple")
     return torch.where(queries != SENTINEL, out, V)
 
 
-def build_subm_index(st: SparseTensor, table) -> NeighborIndex:
+def build_subm_index(st: SparseTensor, table, plain: bool = False) -> NeighborIndex:
     """(V, 27) gather rows of a 3x3x3 submanifold conv over `table`, the
     tensor's (sorted keys, perm) (ops/sparse.py:147-195)."""
-    return NeighborIndex(_dx_triples(subm_queries(st), table, st.coords.shape[0]))
+    return NeighborIndex(_dx_triples(subm_queries(st), table, st.coords.shape[0], plain))
 
 
 def _strided_candidates(st: SparseTensor, kernel, stride, padding):
@@ -201,7 +208,8 @@ def _strided_candidates(st: SparseTensor, kernel, stride, padding):
     return torch.where(ok, cand, SENTINEL).to(torch.int32).reshape(-1), out_shape
 
 
-def strided_output_set(st: SparseTensor, kernel, stride, padding, max_out: int):
+def strided_output_set(st: SparseTensor, kernel, stride, padding, max_out: int,
+                       plain: bool = False):
     """The exact spconv output set of a strided conv (ops/sparse.py:325-543,
     global layout) -> (coords (max_out, 4), valid, out_shape): candidate
     keys, sort, head flags; slot j takes the first sorted position where
@@ -212,32 +220,40 @@ def strided_output_set(st: SparseTensor, kernel, stride, padding, max_out: int):
     head = (s != torch.cat([s.new_full((1,), -1), s[:-1]])) & (s != SENTINEL)
     ch = torch.cumsum(head, 0, dtype=torch.int32)
     slots = torch.arange(1, max_out + 1, dtype=torch.int32, device=s.device)[:, None]
-    pos = sorted_lookup(ch, None, slots, "identity")[:, 0].long()
+    lookup = sorted_lookup_plain if plain else sorted_lookup
+    pos = lookup(ch, None, slots, "identity")[:, 0].long()
     VC = s.shape[0]
     out_keys = torch.where(pos < VC, s[pos.clamp(max=VC - 1)], SENTINEL)
     return decode_strided_keys(out_keys, st.shape, kernel, stride, padding, st.batch_size)
 
 
 def build_strided_plan(st: SparseTensor, kernel, stride, padding, max_out: int,
-                       table) -> StridedPlan:
+                       table, plain: bool = False) -> StridedPlan:
     """`strided_output_set` and its gather index over `table`, the input's
     (sorted keys, perm)."""
-    coords, valid, out_shape = strided_output_set(st, kernel, stride, padding, max_out)
+    coords, valid, out_shape = strided_output_set(st, kernel, stride, padding, max_out,
+                                                  plain=plain)
     q = strided_queries(coords, valid, st.shape, kernel, stride, padding)
     if kernel[2] == 3:
-        gather = _dx_triples(q, table, st.coords.shape[0])
+        gather = _dx_triples(q, table, st.coords.shape[0], plain)
     else:  # the extra conv's (3, 1, 1) kernel
-        gather = sorted_lookup(*table, q, "plain")
+        gather = (sorted_lookup_plain if plain else sorted_lookup)(*table, q, "plain")
     return StridedPlan(coords, valid, NeighborIndex(gather), out_shape)
 
 
 def sparse_conv(feats: torch.Tensor, index, weight: torch.Tensor,
                 compute_dtype=None) -> torch.Tensor:
     """One sparse conv, (M, Co) f32: inputs rounded to `compute_dtype`
-    (None keeps f32), products accumulated in f32."""
+    (None keeps f32), products accumulated in f32. An input that requires
+    grad (grad mode on) takes gather_conv's plain version, which autograd
+    differentiates (a NeighborIndex only)."""
     dt = compute_dtype or feats.dtype
     f = feats.to(dt).contiguous()
     w = weight.to(dt).contiguous()
+    if torch.is_grad_enabled() and (f.requires_grad or w.requires_grad):
+        if not isinstance(index, NeighborIndex):
+            raise ValueError("the differentiable route takes a NeighborIndex")
+        return gather_conv_plain(f, index.gather, w)
     if isinstance(index, Rulebook):
         return rulebook_conv(f, index.nbr, w)
     if isinstance(index, NeighborIndex):
@@ -257,6 +273,24 @@ def to_dense(st: SparseTensor) -> torch.Tensor:
     dense = st.feats.new_zeros((n + 1, C))
     dense[flat] = st.feats
     return dense[:n].view(B, Z, Y, X, C)
+
+
+def masked_batch_stats(feats: torch.Tensor, valid: torch.Tensor, sync: bool = False):
+    """Mean and biased variance, E[x^2] - mean^2, over the valid rows
+    (ops/sparse.py:716-730). sync: the count, sum and sum of squares are
+    first summed over the default process group (the JAX psum over
+    bn_axis_name, apex SyncBN in the reference), through the autograd-aware
+    all_reduce."""
+    m = valid.to(feats.dtype)[:, None]
+    parts = torch.cat([m.sum(0), (feats * m).sum(0), (feats * feats * m).sum(0)])
+    if sync:
+        from torch.distributed.nn.functional import all_reduce
+
+        parts = all_reduce(parts)
+    C = feats.shape[1]
+    cnt = parts[0].clamp_min(1.0)
+    mean = parts[1:C + 1] / cnt
+    return mean, parts[C + 1:] / cnt - mean * mean
 
 
 def masked_batch_norm(feats, valid, scale, bias, mean, var, eps: float = 1e-3):

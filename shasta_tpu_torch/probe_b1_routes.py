@@ -46,14 +46,14 @@ from .ops.kernels.lookup import SENTINEL
 def recorded(*names):
     """Record the arguments of every call of the named functions of
     ops/sparse.py (the trunk calls its kernels and index builders by these
-    module-level names): yields {name: [args, ...]}, in call order."""
+    module-level names): yields {name: [positional args, ...]}, in call order."""
     calls = {n: [] for n in names}
     real = {n: getattr(sp, n) for n in names}
 
     def recorder(name):
-        def call(*args):
+        def call(*args, **kwargs):
             calls[name].append(args)
-            return real[name](*args)
+            return real[name](*args, **kwargs)
         return call
 
     try:

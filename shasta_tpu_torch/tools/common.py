@@ -16,19 +16,22 @@ JAX_ONLY_KEYS = (
     "type",  # the JAX registry's class name
     "use_pallas_gather",  # the JAX trunk's Pallas route (the port picks its route by the frame)
     "assume_sorted_voxels",  # lets the JAX trunk skip its stage-0 argsort
-    "bn_axis_name",  # the JAX data-parallel batch-norm axis (training)
 )
 
 
-def build_model(cfg, device=None) -> ShastaModel:
+def model_config(cfg) -> ShastaConfig:
+    """The ShastaConfig of cfg.model."""
+    return ShastaConfig(**{k: tuple(v) if isinstance(v, list) else v
+                           for k, v in cfg.model.items() if k not in JAX_ONLY_KEYS})
+
+
+def build_model(cfg, device=None, seed: int = 0) -> ShastaModel:
     """The port's ShastaModel of cfg.model on `device` (default "cuda"),
-    its weights initialised from torch seed 0 (the global generator is left
-    as it was)."""
-    m = {k: tuple(v) if isinstance(v, list) else v for k, v in cfg.model.items()
-         if k not in JAX_ONLY_KEYS}
+    its weights initialised from torch seed `seed` (the global generator is
+    left as it was)."""
     with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        return ShastaModel(ShastaConfig(**m), device=device)
+        torch.manual_seed(seed)
+        return ShastaModel(model_config(cfg), device=device)
 
 
 def load_model(cfg, checkpoint: str | None, device=None) -> ShastaModel:

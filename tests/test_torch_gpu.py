@@ -269,3 +269,138 @@ def test_eval_step_8_lanes_cuda_equals_cpu():
         assert np.array_equal(got[:, flags], want[:, flags]), t
         np.testing.assert_allclose(got[:, [2, 5]], want[:, [2, 5]], atol=1e-4, rtol=0)
     assert rows["cpu"][1][:, [0, 1, 4]].any()  # some dead, fn or newborn flag fired
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_autograd_on_the_card():
+    """On CUDA tensors that require grad, with grad mode on, each of the
+    five wrappers raises before it launches (a ctypes launch would cut the
+    graph); under no_grad the same call launches its kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from shasta_tpu_torch.ops.kernels import block_conv, block_extract, gather_conv, lookup
+    from shasta_tpu_torch.ops.kernels import window_conv
+
+    dev = resolve_device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    V, M, K, C = 300, 200, 27, 16
+    f = torch.randn(V, C, generator=g).to(dev).requires_grad_()
+    w = (torch.randn(K, C, C, generator=g) * 0.1).to(dev).requires_grad_()
+    idx = torch.randint(-1, V, (M, K), generator=g, dtype=torch.int32).to(dev)
+    keys = torch.sort(torch.randint(0, 4 * V, (V,), generator=g, dtype=torch.int32))[0].to(dev)
+    perm = torch.randperm(V, generator=g).to(torch.int32).to(dev)
+    q = torch.randint(0, 4 * V, (M, K), generator=g, dtype=torch.int32).to(dev)
+    calls = {block_conv.rulebook_conv: lambda: block_conv.rulebook_conv(f, idx, w),
+             gather_conv.gather_conv: lambda: gather_conv.gather_conv(f, idx, w),
+             window_conv.keyed_conv: lambda: window_conv.keyed_conv(keys, perm, q, f, w)}
+    for kernel, call in calls.items():
+        n = kernel.launches
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+        assert kernel.launches == n
+        with torch.no_grad():
+            out = call()
+        torch.cuda.synchronize()
+        assert out.grad_fn is None and kernel.launches == n + 1
+    with pytest.raises(RuntimeError, match="sorted_lookup has no backward"):
+        lookup.sorted_lookup(keys, perm, q.float().requires_grad_(), "plain")
+    with pytest.raises(RuntimeError, match="block_extract has no backward"):
+        block_extract.block_extract(*[torch.zeros(1, device=dev)] * 5,
+                                    torch.zeros(1, device=dev, requires_grad=True),
+                                    torch.zeros(1, device=dev), H=1, C=1, tile=128,
+                                    variant="full")
+
+
+def _dp_rank(rank, world, port, device_type, out):
+    """One rank of test_data_parallel_step_over_cards (module level: the
+    spawned process imports it)."""
+    import os
+
+    from shasta_tpu_torch.parallel import dist as pdist
+    from shasta_tpu_torch.train import loop
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dev = pdist.init_from_env(device_type)
+    model, batch = _dp_setup(dev, world)
+    tx = loop.make_optimizer(model, 1e-3, 1e-2)
+    state = loop.create_train_state(model, tx)
+    state, m = loop.make_train_step(model, tx)(state, {k: v[rank::world] for k, v in batch.items()})
+    torch.save({"sd": {k: v.cpu() for k, v in model.state_dict().items()},
+                "loss": float(m["loss"])}, os.path.join(out, f"rank{rank}.pt"))
+    pdist.shutdown()
+
+
+def _dp_setup(dev, world):
+    """A small model (seeded random weights) and 2 frame pairs per rank."""
+    from shasta_tpu_torch.convert import load_jax_variables, random_jax_variables
+    from shasta_tpu_torch.data.synthetic import make_batch
+    from shasta_tpu_torch.models import ShastaConfig, ShastaModel
+
+    cfg = ShastaConfig(max_obj=10, grid_shape=(41, 80, 80), pc_start=(-3.0, -3.0),
+                       cap_conv2=2000, cap_conv3=1000, cap_conv4=500, cap_extra=500)
+    model = ShastaModel(cfg, device=dev)
+    load_jax_variables(model, random_jax_variables(model, seed=4))
+    batch = make_batch(cfg, 2 * world, 2500, n_dets=7, with_gt=True, seed=8)
+    for key in ("det_boxes", "prev_det_boxes"):
+        batch[key][:, :, :2] = -3.0 + (batch[key][:, :, :2] + 50.0) / 100.0 * 5.4
+    return model, batch
+
+
+def run_data_parallel_step(device_type, world, tmp_path):
+    """`world` processes (NCCL on cards, gloo on the CPU), each one train
+    step on its 2 pairs with the frozen trunk's kernels: every rank ends
+    with the same bits, and they equal one process that averages the
+    ranks' losses and grads before the same update (params within 2*lr:
+    only the all-reduce's order of summation differs)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from shasta_tpu_torch.device import upload
+    from shasta_tpu_torch.train import loop
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank, args=(r, world, port, device_type, str(tmp_path)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.terminate()
+    assert not alive and [p.exitcode for p in procs] == [0] * world
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)]
+    for r in ranks[1:]:
+        assert r["loss"] == ranks[0]["loss"]
+        assert all(torch.equal(v, ranks[0]["sd"][k]) for k, v in r["sd"].items())
+
+    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    model, batch = _dp_setup(dev, world)
+    tx = loop.make_optimizer(model, 1e-3, 1e-2)
+    losses = []
+    for r in range(world):  # grads accumulate over the shards
+        shard = {k: upload(batch[k][r::world], dev) for k in loop.PAIR_KEYS}
+        loss = loop.bidirectional_ce(*loop.pair_forward(model, shard), shard["gt"])
+        loss.backward()
+        losses.append(loss.item())
+    for g in tx.grads():
+        g /= world
+    tx.step()
+    assert abs(ranks[0]["loss"] - sum(losses) / world) <= 1e-5 * abs(ranks[0]["loss"])
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(ranks[0]["sd"][k], v.cpu(), atol=2e-3, rtol=0, msg=k)
+
+
+@pytest.mark.gpu
+def test_data_parallel_step_over_cards(tmp_path):
+    """One train step data-parallel over every card of the machine (one
+    process per card, NCCL), as torchrun runs tools.train; needs two
+    cards or more."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards or more")
+    run_data_parallel_step("cuda", torch.cuda.device_count(), tmp_path)

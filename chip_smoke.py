@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the PyTorch + CUDA port and drive its serving and training steps on one card.
+"""Build the PyTorch + CUDA port and drive its serving, training and offline paths on one card.
 
     python3 chip_smoke.py
 
@@ -126,10 +126,26 @@ Phases (any failure ends the run with a non-zero exit code):
      launch), the cached loss equal to the full loss at caps that hold
      every set; the train loop's pairs/s (waiting for the loader and the
      step, per step), one profiled step (device busy, top kernels, peak
-     memory), the cached loop's pairs/s and the cache's frames/s.
+     memory), the cached loop's pairs/s and the cache's frames/s;
+  18. the offline chain and the oracle tracker (phase_chain): a synthetic
+     nuScenes dataroot (data.synthetic.build_synthetic_world, 8 scenes x 40
+     key frames, 40 moving cars and 60 false positives a frame) through the
+     chain's CLIs in process, each timed per scene (make_scenes,
+     preprocess_nuscenes, create_data, check_artifacts with no problem,
+     estimate_stats), preprocess_nuscenes --mode 20hz on the micro tree;
+     run_oracle_mot (giou, bipartite, kf) on cuda and with --cpu: track ids
+     per frame and the MOTA summary exactly equal, the giou matrices of the
+     first frames within 1e-5, the redundancy's one matrix per frame equal
+     to its per-track calls bit for bit, frames/s on both and the device
+     busy share of one profiled scene; then tools.track_scene serving the
+     chain's first two scenes from the infos create_data wrote (12
+     sorted_lookup + 21 gather_conv per frame, counted), the path's lookups
+     and convs against their plain versions on two frames of that tree (a
+     scene's first key frame, with no sweep, and its last, with 9) and, at a
+     small configuration, the same CLI on cuda == on cpu.
 The line before the last is {"kernels": [...]} (launches per main path
-from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16 and 17,
-each counted from 0 just before it; times from phases 3-3d, 8 and 15-17);
+from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16, 17 and 18,
+each counted from 0 just before it; times from phases 3-3d, 8 and 15-18);
 the last is {"ok": true, "device": {...}}. Imports nothing of JAX or of the
 JAX package.
 """
@@ -255,10 +271,11 @@ CONV_GROUPS = ("conv_input", "res0", "down1", "res1", "down2", "res2", "down3", 
 
 
 def phase_gather_kernels(label, run):
-    """Phases 3b-3d, 15 and 16: the 12 sorted_lookup and 21 gather_conv calls
+    """Phases 3b-3d and 15-18: the 12 sorted_lookup and 21 gather_conv calls
     that `run()` makes (one unplanned trunk pass: the 4-lane step, the B=1
-    step without plans, the two-frame forward, a served split's frame or
-    an 8-lane eval step),
+    step without plans, the two-frame forward, a served split's frame, an
+    8-lane eval step, a train step or cache batch, a frame of the chain's
+    tree),
     each against its plain version on its own arguments (a conv also on
     seeded f32 and bf16 features at its gather table), a second bf16 run
     (the same bits) and the times (per path: the sum over its calls)."""
@@ -1529,6 +1546,293 @@ def phase_training(kernels, smi):
         cached_step_ms=step_c.tolist(), cache_frames_per_s=frames_s, cache_s=cache_s)
 
 
+# the world of phase 18: one nuScenes scene is 20 s at 2 Hz (40 key frames);
+# 40 moving cars and 60 false positives a frame, the fixture's noise (0.3 m)
+# and miss rate (0.2), objects and false positives within 50 m of the ego
+ORACLE_SCENES, ORACLE_FRAMES = 8, 40
+ORACLE_WORLD = dict(n_scenes=ORACLE_SCENES, n_frames=ORACLE_FRAMES, n_objects=40,
+                    fp_per_frame=60, span=50.0, seed=18)
+SERVE_CHAIN_SCENES = 2
+# the chain tree's frames whose lookups and convs are held against their
+# plain versions: a scene's first key frame (no sweep) and its last (9)
+CHAIN_GATHER = {f"chain tree frame {i}": i for i in (0, ORACLE_FRAMES - 1)}
+SMALL_CHAIN_FRAMES = 4
+GIOU_FRAMES = 4
+
+
+def explain_flip(data, scene, fi, cfg):
+    """Print, for the first frame whose track ids differ between cuda and
+    cpu, the association and redundancy entries nearest their thresholds on
+    both devices (the models run in step up to the frame before)."""
+    import copy
+
+    import numpy as np
+
+    from shasta_tpu_torch.mot import MOTModel
+    from shasta_tpu_torch.mot.association import compute_distance_matrix, geometry_matrix
+    from shasta_tpu_torch.tools.run_oracle_mot import scene_frames
+
+    frames = scene_frames(data, "cp", scene)
+    models = {d: MOTModel(cfg, device=d) for d in ("cuda", "cpu")}
+    for f in frames[:fi]:
+        for m in models.values():
+            m.frame_mot(copy.deepcopy(f))
+    f = frames[fi]
+    r, red = cfg["running"], cfg["redundancy"]
+    thr = r["asso_thres"][r["asso"]]
+    red_thr = red["det_dist_threshold"][r["asso"]]
+    for name, m in models.items():
+        trks = copy.deepcopy(m.trackers)
+        preds = np.stack([t.predict(f.time_stamp, True) for t in trks]) if trks else None
+        cand = f.dets[f.dets[:, 7] >= r["score_threshold"]]
+        if preds is None or not len(cand):
+            print(f"  {name}: {len(trks)} tracks, {len(cand)} candidates")
+            continue
+        dist = {d: compute_distance_matrix(cand, preds, r["asso"], device=d) for d in ("cuda", "cpu")}
+        near = np.argsort(np.abs(dist["cuda"] - thr), axis=None)[:5]
+        for k in near:
+            i, j = np.unravel_index(k, dist["cuda"].shape)
+            print(f"  {name} model, association pair (det {i}, track {j}): distance cuda "
+                  f"{dist['cuda'][i, j]!r} cpu {dist['cpu'][i, j]!r}, threshold {thr}")
+        low = f.dets[f.dets[:, 7] > red["det_score_threshold"][r["asso"]]]
+        states = np.stack([t.get_state() for t in trks])
+        geo = {d: geometry_matrix(low, states, r["asso"], d) for d in ("cuda", "cpu")}
+        for k in np.argsort(np.abs(geo["cuda"] - red_thr), axis=None)[:5]:
+            i, j = np.unravel_index(k, geo["cuda"].shape)
+            print(f"  {name} model, redundancy pair (det {i}, track {j}): {r['asso']} cuda "
+                  f"{geo['cuda'][i, j]!r} cpu {geo['cpu'][i, j]!r}, threshold {red_thr}")
+
+
+def phase_chain(kernels, smi):
+    """Phase 18: the offline chain and the oracle tracker on the card's
+    machine. A synthetic nuScenes dataroot (data.synthetic
+    build_synthetic_world, ORACLE_WORLD) goes through the chain's CLIs in
+    process, each timed: make_scenes, preprocess_nuscenes (2 Hz),
+    create_data (10 sweeps) and check_artifacts, which must find no
+    problem; preprocess_nuscenes --mode 20hz on the micro tree
+    (build_micro_nusc, with the sweeps between key frames). estimate_stats
+    on the 2 Hz tree; run_oracle_mot (giou, bipartite, kf) on cuda and with
+    --cpu: per-frame track ids and the MOTA summaries exactly equal, the
+    giou distance matrices of the first frames within 1e-5 and the
+    redundancy's one matrix per frame equal to its per-track calls on the
+    card, bit for bit; the device busy share of one profiled oracle scene.
+    Then the tools.track_scene CLI serves the chain's tree (its first two
+    scenes, the infos create_data wrote, a random .pth) on cuda, launches
+    counted; the path's lookups and f32 convs against their plain versions
+    (phase_gather_kernels) on the CHAIN_GATHER frames; and at a small
+    configuration on cuda and on cpu (ids exact, tracking_score within
+    1e-4). Returns (launches, the path's kernel records per frame, numbers)."""
+    import copy
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from shasta_tpu_torch.data.synthetic import (build_micro_nusc, build_synthetic_world,
+                                                 write_split_config)
+    from shasta_tpu_torch.device import upload
+    from shasta_tpu_torch.infer import FRAME_KEYS
+    from shasta_tpu_torch.mot import MOTModel
+    from shasta_tpu_torch.mot.association import compute_distance_matrix, geometry_matrix
+    from shasta_tpu_torch.mot.mot_model import DEFAULT_CONFIG
+    from shasta_tpu_torch.tools import (check_artifacts, create_data, estimate_stats, make_scenes,
+                                        preprocess_nuscenes, run_oracle_mot, track_scene)
+    from shasta_tpu_torch.tools.common import build_dataset, build_pipeline, load_model
+    from shasta_tpu_torch.tools.run_oracle_mot import scene_frames
+    from shasta_tpu_torch.utils import Config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "work_dirs", "chip_smoke_chain")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stage_s = {}
+
+    def timed(stage, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        stage_s[stage] = time.perf_counter() - t0
+        return out
+
+    fx = timed("write dataroot", lambda: build_synthetic_world(os.path.join(root, "world"),
+                                                               **ORACLE_WORLD))
+    micro = build_micro_nusc(os.path.join(root, "micro"))
+    raw = ["--dataroot", str(fx["root"]), "--version", "v1.0-mini"]
+    out = os.path.join(root, "prep")
+    data = os.path.join(out, "val_2hz")
+    scenes = timed("make_scenes", lambda: make_scenes.main(
+        raw + ["--out", os.path.join(out, "scenes_meta.json")]))["scenes"]
+    check(list(scenes) == fx["scene_names"]
+          and all(len(v) == ORACLE_FRAMES for v in scenes.values()),
+          "make_scenes: scenes or frames missing")
+    timed("preprocess_nuscenes", lambda: preprocess_nuscenes.main(
+        raw + ["--results", str(fx["results"]), "--out", out, "--split", "val"]))
+    infos_path = os.path.join(out, "infos_val_10sweeps.pkl")
+    infos = timed("create_data", lambda: create_data.main(raw + ["--out", infos_path]))
+    problems = timed("check_artifacts", lambda: check_artifacts.main(
+        ["--data", out, "--split", "val"]))
+    check(problems == 0, f"check_artifacts found {problems} problem(s) in the chain's tree")
+    timed("preprocess_nuscenes --mode 20hz (micro tree)", lambda: preprocess_nuscenes.main(
+        ["--dataroot", str(micro["root"]), "--version", "v1.0-mini", "--results",
+         str(micro["results"]), "--out", os.path.join(root, "micro_prep"), "--split", "val",
+         "--mode", "20hz"]))
+    with open(os.path.join(root, "micro_prep", "val_20hz", "token_info", "scene-0001.json")) as f:
+        rows = json.load(f)
+    check([r[3] for r in rows] == [True, False, True, True, False, True, True],
+          f"20 Hz chain: selection flags {[r[3] for r in rows]}")
+    n_frames = ORACLE_SCENES * ORACLE_FRAMES
+    check(len(infos) == n_frames and len(infos[-1]["sweeps"]) == 9,
+          f"create_data: {len(infos)} infos, the last with {len(infos[-1]['sweeps'])} sweeps")
+    timed("estimate_stats", lambda: estimate_stats.main(
+        ["--data", data, "--out", os.path.join(root, "stats"), "--name", "cp_2hz_synthetic"]))
+    per_scene = {k: v / ORACLE_SCENES for k, v in stage_s.items() if "micro" not in k}
+    print(f"phase 18: chain over {ORACLE_SCENES} scenes x {ORACLE_FRAMES} key frames "
+          f"({ORACLE_WORLD['n_objects']} objects, {ORACLE_WORLD['fp_per_frame']} false positives "
+          f"a frame): seconds per scene {({k: round(v, 4) for k, v in per_scene.items()})}; "
+          f"20 Hz micro tree {stage_s['preprocess_nuscenes --mode 20hz (micro tree)']:.3f} s; "
+          f"check_artifacts: 0 problems")
+
+    # the oracle tracker on cuda and on the CPU
+    runs, fps = {}, {}
+    for d in ("cuda", "cpu"):
+        runs[d] = timed(f"run_oracle_mot {d}", lambda: run_oracle_mot.main(
+            ["--data", data, "--out", os.path.join(root, f"mot_{d}.json")]
+            + (["--cpu"] if d == "cpu" else [])))
+        fps[d] = n_frames / stage_s[f"run_oracle_mot {d}"]
+    t_checks = time.perf_counter()
+    (sum_cuda, ids_cuda), (sum_cpu, ids_cpu) = runs["cuda"], runs["cpu"]
+    cfg = copy.deepcopy(DEFAULT_CONFIG)
+    for scene in ids_cpu:
+        for fi, (a, b) in enumerate(zip(ids_cuda[scene], ids_cpu[scene])):
+            if a != b:
+                print(f"phase 18: {scene} frame {fi}: track ids differ on cuda and cpu")
+                explain_flip(data, scene, fi, cfg)
+                check(False, f"oracle tracker: {scene} frame {fi}: ids differ")
+    check(ids_cuda == ids_cpu and sum_cuda == sum_cpu,
+          f"oracle tracker: cuda {sum_cuda} and cpu {sum_cpu} differ")
+    n_ids = len({i for v in ids_cuda.values() for f in v for i in f})
+    # the giou matrices of the first frames, and the redundancy's one
+    # matrix against its per-track calls on the card
+    frames = scene_frames(data, "cp", "scene-0000")
+    giou_err, cols = 0.0, 0
+    model = MOTModel(cfg, device="cuda")
+    for prev, curr in zip(frames[:GIOU_FRAMES], frames[1:GIOU_FRAMES + 1]):
+        m = {d: compute_distance_matrix(curr.dets, prev.dets, "giou", device=d)
+             for d in ("cuda", "cpu")}
+        check(m["cuda"].dtype == np.float32, "giou matrix is not f32")
+        giou_err = max(giou_err, float(np.abs(m["cuda"] - m["cpu"]).max()))
+        model.frame_mot(copy.deepcopy(prev))
+        states = np.stack([t.get_state() for t in model.trackers])
+        cand = curr.dets[curr.dets[:, 7] > cfg["redundancy"]["det_score_threshold"]["giou"]]
+        full = geometry_matrix(cand, states, "giou", "cuda")
+        for j in range(0, len(states), 8):
+            col = geometry_matrix(cand, states[j:j + 1], "giou", "cuda")[:, 0]
+            check(col.tobytes() == full[:, j].tobytes(),
+                  f"redundancy matrix column {j} differs from its per-track call on the card")
+            cols += 1
+    check(giou_err <= 1e-5, f"giou matrices: cuda vs cpu max abs diff {giou_err}")
+    stage_s["device checks"] = time.perf_counter() - t_checks
+    # one profiled oracle scene (device activity only: its kernels' time)
+    t_prof = time.perf_counter()
+    scene0 = scene_frames(data, "cp", "scene-0000")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model = MOTModel(cfg, device="cuda")
+        for f in scene0:
+            model.frame_mot(f)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / len(scene0) * 1e3
+    # the raw device events (~100k): key_averages() would build an object
+    # per event first, which takes longer than the scene
+    device = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()]
+    busy = sum(e.duration_ns() for e in device) / 1e6 / len(scene0)
+    launches_per_frame = len(device) / len(scene0)
+    stage_s["profiled scene"] = time.perf_counter() - t_prof
+    print(f"phase 18: run_oracle_mot (giou, bipartite, kf) over {n_frames} frames: cuda "
+          f"{fps['cuda']:.3f} frames/s, cpu {fps['cpu']:.3f} frames/s ({smi}); ids and MOTA "
+          f"summary equal on both ({n_ids} ids, MOTA {sum_cuda['mota']:.4f}); giou matrices of "
+          f"{GIOU_FRAMES} frames within {giou_err:.3g}; {cols} redundancy columns == their "
+          f"per-track calls; profiled scene: wall {wall:.3f} ms, device busy {busy:.3f} ms per "
+          f"frame ({100 * busy / wall:.1f}%), {launches_per_frame:.0f} kernels a frame")
+
+    # the port's served path on the chain's tree
+    t_serve = time.perf_counter()
+    car = os.path.join(repo, "configs", "nusc", "car.py")
+    first = set(fx["scene_names"][:SERVE_CHAIN_SCENES])
+    serve_infos = os.path.join(out, "infos_serve.pkl")
+    create_data.main(raw + ["--out", serve_infos, "--scenes", *sorted(first)])
+    val = dict(info_path=serve_infos,
+               det_path=os.path.join(data, "detections", "cp", "sensor_individual_frames"),
+               cls_info_path=os.path.join(data, "detections", "cp", "cls_individual_frames"),
+               frame_info_path=os.path.join(out, "val_frame_info.json"), test_mode=True)
+    cfg_path = write_split_config(car, val, os.path.join(root, "car.py"))
+    ckpt = random_checkpoint(Config.fromfile(cfg_path), os.path.join(root, "car.pth"), seed=18)
+    n_serve = SERVE_CHAIN_SCENES * ORACLE_FRAMES
+    stage_s["serving set-up"] = time.perf_counter() - t_serve
+    result, launches = timed("track_scene", lambda: counted(kernels, lambda: track_scene.main(
+        ["--config", cfg_path, "--checkpoint", ckpt, "--out", os.path.join(root, "track.json")])))
+    serve_fps = n_serve / stage_s["track_scene"]
+    want = {k.__name__: 0 for k in kernels}
+    want.update(sorted_lookup=12 * n_serve, gather_conv=21 * n_serve)
+    check(launches == want, f"track_scene over the chain's tree: expected 12 sorted_lookup + 21 "
+                            f"gather_conv launches per frame, got {launches}")
+    check(list(result["results"]) == [i["token"] for i in infos[:n_serve]],
+          "track_scene over the chain's tree: tokens out of order")
+    annos = [a for v in result["results"].values() for a in v]
+    check(len(annos) > 0 and all(np.isfinite(a["tracking_score"]) for a in annos),
+          "track_scene over the chain's tree: no annotation, or a score not finite")
+    # the path's lookups and f32 convs against their plain versions on the
+    # chain tree's own frames (~2.4k points a key frame, up to 9 earlier key
+    # frames as sweeps: sets far smaller than phase 15's split)
+    t_gather = time.perf_counter()
+    chain_cfg = Config.fromfile(cfg_path)
+    pipe = build_pipeline(chain_cfg, load_model(chain_cfg, ckpt, "cuda"))
+    ds = build_dataset(chain_cfg, "val")
+    gather, voxels = {}, {}
+    for label, i in CHAIN_GATHER.items():
+        sample = ds[i]
+        voxels[label] = int(sample["voxels_valid"].sum())
+        frame = {k: upload(sample[k][None], "cuda") for k in FRAME_KEYS}
+        gather[label] = phase_gather_kernels(label, lambda: pipe.model.bev_single(frame))
+    del pipe
+    stage_s["kernels vs plain"] = time.perf_counter() - t_gather
+    # cuda against cpu at the small configuration, the first frames of scene 0
+    t_small = time.perf_counter()
+    small_infos = os.path.join(out, "infos_small.pkl")
+    with open(small_infos, "wb") as f:
+        pickle.dump(infos[:SMALL_CHAIN_FRAMES], f)
+    small = write_split_config(car, dict(val, info_path=small_infos),
+                               os.path.join(root, "small.py"), **SERVE_SMALL)
+    ck_s = random_checkpoint(Config.fromfile(small), os.path.join(root, "small.pth"), seed=19)
+    small_runs = {d: track_scene.main(["--config", small, "--checkpoint", ck_s, "--out",
+                                       os.path.join(root, f"small_{d}.json")]
+                                      + (["--cpu"] if d == "cpu" else []))
+                  for d in ("cuda", "cpu")}
+    k = same_result(small_runs["cuda"], small_runs["cpu"], "chain tree, small config cuda vs cpu")
+    check(k > 0, "chain tree, small config: no annotation")
+    stage_s["small cuda vs cpu"] = time.perf_counter() - t_small
+    print(f"phase 18: track_scene CLI over the chain's first {SERVE_CHAIN_SCENES} scenes on cuda: "
+          f"{n_serve} frames at {serve_fps:.3f} frames/s (f32, full car config, reading "
+          f"included), {len(annos)} annotations, launches {launches}; voxels of the frames held "
+          f"against the plain versions {voxels}; small configuration on cuda == on cpu ({k} "
+          f"annotations)")
+    print(f"phase 18: seconds by part {({n: round(v, 3) for n, v in stage_s.items()})}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, gather, dict(
+        seconds_per_scene=per_scene, seconds_by_part=stage_s, micro_20hz_s=stage_s["preprocess_nuscenes --mode 20hz "
+                                                          "(micro tree)"],
+        oracle_frames=n_frames, oracle_frames_per_s_cuda=fps["cuda"],
+        oracle_frames_per_s_cpu=fps["cpu"], oracle_summary=sum_cuda, oracle_ids=n_ids,
+        giou_max_abs_diff=giou_err, redundancy_columns_checked=cols,
+        profiled_scene_wall_ms=wall, profiled_scene_device_busy_ms=busy,
+        profiled_scene_kernels_per_frame=launches_per_frame,
+        serve_frames=n_serve, serve_frames_per_s=serve_fps, gather_voxels=voxels,
+        small_annotations=k)
+
+
 def bound_of(rec) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") of a kernel record's counted
     bytes and operations on the H100 (shasta_tpu_torch.timing)."""
@@ -1797,6 +2101,11 @@ def main() -> int:
     path_launches.update(launches17)
     gather_paths.update(gather17)
 
+    # 18. the offline chain, the oracle tracker and the chain's tree served
+    path_launches["18: track_scene over the chain's tree"], gather18, chain = phase_chain(
+        kernels, smi)
+    gather_paths.update(gather18)
+
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
                              "shasta_tpu/ops/pallas/block_conv.py:117", "B=1 frame with plans"),
            "keyed_conv": ("shasta_tpu_torch/csrc/window_conv.cu",
@@ -1851,7 +2160,7 @@ def main() -> int:
                       "lanes4_frames_per_s": fps4, "lanes4_frames_per_s_runs": sps_runs,
                       "classes7_frames_per_s": fps7, "classes7_frames_per_s_runs": fps7_runs,
                       "classes7_peak_device_gib": peak_gb, "serving": serving,
-                      "eval_flow": eval_flow, "training": training,
+                      "eval_flow": eval_flow, "training": training, "chain": chain,
                       "card": smi, "host": host,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out_kernels}))

@@ -7,12 +7,20 @@
 - `write_track_split`: a preprocessed split on disk, in the files the
   nuScenes dataset reader (data/nuscenes.py) reads, a train split with its
   GT affinity labels; `write_split_config` points a config at it.
+- `build_synthetic_world`, `build_micro_nusc`: raw nuScenes dataroots (the
+  devkit's json tables, lidar .bin files, a detector results json and a
+  key-frame infos pickle) that the offline chain (preprocessing/) reads;
+  copies of tests/fixtures_nusc.py's builders, which write the same tables,
+  clouds, results and infos for the same arguments.
 """
 from __future__ import annotations
 
 import json
 import os
+import pathlib
 import pickle
+import struct
+import zlib
 
 import numpy as np
 
@@ -309,3 +317,353 @@ def write_split_config(config_path: str, val: dict, out_path: str, **overrides) 
     with open(out_path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return out_path
+
+
+# ---------------------------------------------------------------------------
+# Raw nuScenes dataroots (copies of tests/fixtures_nusc.py)
+# ---------------------------------------------------------------------------
+
+def _write_png(path, pixels: np.ndarray) -> None:
+    """An 8-bit grey (H, W) or RGB (H, W, 3) image as a PNG, with zlib alone."""
+    h, w = pixels.shape[:2]
+    color = 0 if pixels.ndim == 2 else 2
+    raw = b"".join(b"\0" + row.tobytes() for row in np.ascontiguousarray(pixels, np.uint8))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color,
+                                                                       0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _rotmat_to_quat(R):
+    """Rotation matrix -> quaternion [w, x, y, z] (for camera extrinsics)."""
+    w = np.sqrt(max(0.0, 1.0 + R[0, 0] + R[1, 1] + R[2, 2])) / 2.0
+    x = (R[2, 1] - R[1, 2]) / (4 * w)
+    y = (R[0, 2] - R[2, 0]) / (4 * w)
+    z = (R[1, 0] - R[0, 1]) / (4 * w)
+    return [float(w), float(x), float(y), float(z)]
+
+
+# forward-looking camera: x_cam = -y_ego (right), y_cam = -z_ego (down),
+# z_cam = +x_ego (forward); columns of R are the camera axes in ego coords
+CAM_ROT = _rotmat_to_quat(np.array([[0.0, 0.0, 1.0],
+                                    [-1.0, 0.0, 0.0],
+                                    [0.0, -1.0, 0.0]]))
+CAM_TRANS = [1.5, 0.0, 1.5]
+CAM_INTRINSIC = [[400.0, 0.0, 300.0], [0.0, 400.0, 200.0], [0.0, 0.0, 1.0]]
+CAM_WH = (600, 400)
+
+
+def _write_tables(ver: pathlib.Path, tables) -> None:
+    for name, table in tables:
+        with open(ver / f"{name}.json", "w") as f:
+            json.dump(table, f)
+
+
+def build_synthetic_world(tmp_path, n_scenes=4, n_frames=12, n_objects=5,
+                          det_noise=0.3, fp_per_frame=3, miss_prob=0.2,
+                          span=18.0, seed=0):
+    """A raw-table world under tmp_path/nuScenes (version v1.0-mini) for
+    closed-loop tests: moving cars with constant velocity, noisy
+    detections, mid-score false positives, and detection dropouts (so FP
+    elimination and FN propagation have real work to do). Every frame is a
+    key frame. Returns dict(root, results, infos, scene_names)."""
+    root = pathlib.Path(tmp_path) / "nuScenes"
+    ver = root / "v1.0-mini"
+    ver.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+
+    scenes, samples, sample_data, ego_pose, anns = [], [], [], [], []
+    instances, results = [], {}
+    sweeps_dir = root / "sweeps"
+    sweeps_dir.mkdir(exist_ok=True)
+    infos = []
+
+    for si in range(n_scenes):
+        stoks = [f"s{si}f{i}" for i in range(n_frames)]
+        scenes.append({
+            "token": f"scene{si}", "name": f"scene-{si:04d}",
+            "first_sample_token": stoks[0], "last_sample_token": stoks[-1],
+            "log_token": "log0",
+        })
+        # constant-velocity cars
+        pos0 = rng.uniform(-span, span, (n_objects, 2))
+        vel = rng.uniform(-3, 3, (n_objects, 2))
+        yaw = rng.uniform(-np.pi, np.pi, n_objects)
+        for i, tok in enumerate(stoks):
+            t_us = 1_000_000 * (i + 1) // 2
+            samples.append({
+                "token": tok, "timestamp": t_us, "scene_token": f"scene{si}",
+                "prev": stoks[i - 1] if i > 0 else "",
+                "next": stoks[i + 1] if i < n_frames - 1 else "",
+            })
+            bin_path = sweeps_dir / f"LIDAR_TOP_{si}_{i}.bin"
+            # background returns + a dense cluster on every real object, so
+            # BEV descriptors carry occupancy signal (true dets sit on
+            # points, false positives on empty ground)
+            bg = rng.uniform(-1, 1, size=(800, 5)).astype(np.float32)
+            bg[:, :2] *= span
+            bg[:, 2] = rng.uniform(-2, 0.5, 800)
+            clusters = []
+            for k in range(n_objects):
+                cx, cy = pos0[k] + vel[k] * 0.5 * i
+                c = np.zeros((40, 5), np.float32)
+                c[:, 0] = cx + rng.uniform(-2.2, 2.2, 40)
+                c[:, 1] = cy + rng.uniform(-1.0, 1.0, 40)
+                c[:, 2] = rng.uniform(0.0, 1.5, 40)
+                c[:, 3] = rng.uniform(0, 30, 40)
+                clusters.append(c)
+            pts = np.concatenate([bg] + clusters).astype(np.float32)
+            pts.tofile(bin_path)
+            sample_data.append({
+                "token": f"sd{si}_{i}", "sample_token": tok, "is_key_frame": True,
+                "timestamp": t_us, "filename": f"sweeps/LIDAR_TOP_{si}_{i}.bin",
+                "ego_pose_token": f"ego{si}_{i}", "calibrated_sensor_token": "cs0",
+                "prev": f"sd{si}_{i-1}" if i > 0 else "",
+                "next": f"sd{si}_{i+1}" if i < n_frames - 1 else "",
+            })
+            ego_pose.append({
+                "token": f"ego{si}_{i}",
+                "translation": [0.0, 0.0, 0.0], "rotation": [1.0, 0, 0, 0],
+            })
+            infos.append({
+                "token": tok,
+                "lidar_path": str(bin_path),
+                "sweeps": [],
+            })
+            dets = []
+            for k in range(n_objects):
+                x, y = pos0[k] + vel[k] * 0.5 * i
+                anns.append({
+                    "token": f"ann{si}_{i}_{k}", "sample_token": tok,
+                    "instance_token": f"inst{si}_{k}",
+                    "translation": [float(x), float(y), 0.5],
+                    "size": [2.0, 4.5, 1.6],
+                    "rotation": list(yaw_to_quaternion(float(yaw[k]))),
+                    "num_lidar_pts": 10, "num_radar_pts": 0,
+                    "prev": f"ann{si}_{i-1}_{k}" if i > 0 else "",
+                    "next": f"ann{si}_{i+1}_{k}" if i < n_frames - 1 else "",
+                })
+                if rng.random() < miss_prob:
+                    continue  # detection dropout
+                nx, ny = x + rng.normal(0, det_noise), y + rng.normal(0, det_noise)
+                dets.append({
+                    "sample_token": tok,
+                    "translation": [float(nx), float(ny), 0.5],
+                    "size": [2.0, 4.5, 1.6],
+                    "rotation": list(yaw_to_quaternion(float(yaw[k]))),
+                    "velocity": [float(vel[k][0]), float(vel[k][1])],
+                    "detection_name": "car",
+                    "detection_score": float(rng.uniform(0.6, 0.95)),
+                    "attribute_name": "vehicle.moving",
+                })
+            for _ in range(int(fp_per_frame)):
+                fx, fy = rng.uniform(-span, span, 2)
+                dets.append({
+                    "sample_token": tok,
+                    "translation": [float(fx), float(fy), 0.5],
+                    "size": [2.0, 4.0, 1.5],
+                    "rotation": [1.0, 0, 0, 0],
+                    "velocity": [0.0, 0.0],
+                    "detection_name": "car",
+                    "detection_score": float(rng.uniform(0.4, 0.8)),
+                    "attribute_name": "vehicle.moving",
+                })
+            results[tok] = dets
+        for k in range(n_objects):
+            instances.append({"token": f"inst{si}_{k}", "category_token": "cat_car"})
+
+    _write_tables(ver, (
+        ("scene", scenes), ("sample", samples), ("sample_data", sample_data),
+        ("ego_pose", ego_pose),
+        ("calibrated_sensor", [{"token": "cs0", "translation": [0, 0, 1.8],
+                                "rotation": [1.0, 0, 0, 0]}]),
+        ("sample_annotation", anns), ("instance", instances),
+        ("category", [{"token": "cat_car", "name": "vehicle.car"}]), ("attribute", []),
+        ("log", [{"token": "log0", "location": "synthetic"}]), ("map", []),
+    ))
+    results_path = root / "cp_results.json"
+    with open(results_path, "w") as f:
+        json.dump({"results": results, "meta": {}}, f)
+    infos_path = root / "infos.pkl"
+    with open(infos_path, "wb") as f:
+        pickle.dump(infos, f)
+    return dict(root=root, results=results_path, infos=infos_path,
+                scene_names=[s["name"] for s in scenes])
+
+
+def build_micro_nusc(tmp_path):
+    """One scene under tmp_path/nuScenes (v1.0-mini), 3 key frames with two
+    non-key lidar sweeps between each pair (the 20 Hz chain), 2 moving cars +
+    1 FP detection, a front camera and a small map mask. Returns dict(root,
+    results, infos, tokens)."""
+    root = pathlib.Path(tmp_path) / "nuScenes"
+    ver = root / "v1.0-mini"
+    ver.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+
+    n_frames = 3
+    sample_tokens = [f"samp{i}" for i in range(n_frames)]
+    scene = [{
+        "token": "scene0", "name": "scene-0001",
+        "first_sample_token": sample_tokens[0],
+        "last_sample_token": sample_tokens[-1],
+        "log_token": "log0",
+    }]
+    logs = [{"token": "log0", "location": "micro-town"}]
+    # small rasterized map mask (res 0.5 m/px, 100 m x 100 m)
+    maps_dir = root / "maps"
+    maps_dir.mkdir(parents=True, exist_ok=True)
+    mask = np.zeros((200, 200), np.uint8)
+    mask[80:120, :] = 255  # a horizontal "road" band
+    _write_png(maps_dir / "micro_map.png", mask)
+    maps = [{
+        "token": "map0", "log_tokens": ["log0"],
+        "filename": "maps/micro_map.png", "category": "semantic_prior",
+        "resolution": 0.5,
+    }]
+    samples, sample_data, ego_pose, anns = [], [], [], []
+    calibrated = [
+        {
+            "token": "cs0",
+            "translation": [0.9, 0.0, 1.8],
+            "rotation": [1.0, 0, 0, 0],
+        },
+        {
+            "token": "cs_cam",
+            "translation": list(CAM_TRANS),
+            "rotation": list(CAM_ROT),
+            "camera_intrinsic": CAM_INTRINSIC,
+        },
+    ]
+    instances = [
+        {"token": "inst_a", "category_token": "cat_car"},
+        {"token": "inst_b", "category_token": "cat_car"},
+    ]
+    categories = [{"token": "cat_car", "name": "vehicle.car"}]
+
+    results = {}
+    for i, tok in enumerate(sample_tokens):
+        t_us = 1_000_000 * (i + 1) // 2  # 2 Hz
+        samples.append({
+            "token": tok, "timestamp": t_us, "scene_token": "scene0",
+            "prev": sample_tokens[i - 1] if i > 0 else "",
+            "next": sample_tokens[i + 1] if i < n_frames - 1 else "",
+        })
+        # lidar bin
+        sweeps_dir = root / "sweeps"
+        sweeps_dir.mkdir(exist_ok=True)
+        bin_path = sweeps_dir / f"LIDAR_TOP_{i}.bin"
+        pts = rng.uniform(-1, 1, size=(3000, 5)).astype(np.float32)
+        pts[:, :2] *= 50
+        pts[:, 2] = rng.uniform(-3, 1, 3000)
+        pts.tofile(bin_path)
+        sample_data.append({
+            "token": f"sd{i}", "sample_token": tok, "is_key_frame": True,
+            "timestamp": t_us,
+            "filename": f"sweeps/LIDAR_TOP_{i}.bin",
+            "ego_pose_token": f"ego{i}", "calibrated_sensor_token": "cs0",
+            "prev": f"sd{i-1}m1" if i > 0 else "",
+            "next": f"sd{i}m0" if i < n_frames - 1 else "",
+        })
+        # two intermediate (non-key) sweeps toward the next key frame, so
+        # the 20 Hz chain + GT interpolation are exercised
+        if i < n_frames - 1:
+            for m in range(2):
+                sample_data.append({
+                    "token": f"sd{i}m{m}",
+                    "sample_token": sample_tokens[i + 1],
+                    "is_key_frame": False,
+                    "timestamp": t_us + (m + 1) * 500_000 // 3,
+                    "filename": f"sweeps/LIDAR_TOP_{i}.bin",
+                    "ego_pose_token": f"ego{i}",
+                    "calibrated_sensor_token": "cs0",
+                    "prev": f"sd{i}" if m == 0 else f"sd{i}m0",
+                    "next": f"sd{i}m1" if m == 0 else f"sd{i+1}",
+                })
+        # front camera key frame (for the scene renderer)
+        cam_dir = root / "samples"
+        cam_dir.mkdir(exist_ok=True)
+        cam_file = cam_dir / f"CAM_FRONT_{i}.png"
+        if not cam_file.exists():
+            _write_png(cam_file, np.full((CAM_WH[1], CAM_WH[0], 3), 90, np.uint8))
+        sample_data.append({
+            "token": f"sdc{i}", "sample_token": tok, "is_key_frame": True,
+            "timestamp": t_us,
+            "filename": f"samples/CAM_FRONT_{i}.png",
+            "width": CAM_WH[0], "height": CAM_WH[1],
+            "ego_pose_token": f"ego{i}", "calibrated_sensor_token": "cs_cam",
+            "prev": f"sdc{i-1}" if i > 0 else "",
+            "next": f"sdc{i+1}" if i < n_frames - 1 else "",
+        })
+        ego_pose.append({
+            "token": f"ego{i}",
+            "translation": [0.0, 0.0, 0.0],
+            "rotation": [1.0, 0, 0, 0],
+        })
+        # two GT cars moving +x at 4 m/s
+        dets = []
+        for k, inst in enumerate(("inst_a", "inst_b")):
+            x = 10.0 * (k + 1) + 2.0 * i
+            y = 5.0 * k
+            anns.append({
+                "token": f"ann{i}_{k}", "sample_token": tok,
+                "instance_token": inst,
+                "translation": [x, y, 0.5],
+                "size": [2.0, 4.5, 1.6],
+                "rotation": list(yaw_to_quaternion(0.1 * k)),
+                "num_lidar_pts": 10, "num_radar_pts": 0,
+                "prev": f"ann{i-1}_{k}" if i > 0 else "",
+                "next": f"ann{i+1}_{k}" if i < n_frames - 1 else "",
+            })
+            dets.append({
+                "sample_token": tok,
+                "translation": [x + 0.1, y - 0.05, 0.5],
+                "size": [2.0, 4.5, 1.6],
+                "rotation": list(yaw_to_quaternion(0.1 * k)),
+                "velocity": [4.0, 0.0],
+                "detection_name": "car",
+                "detection_score": 0.9 - 0.1 * k,
+                "attribute_name": "vehicle.moving",
+            })
+        # one far FP
+        dets.append({
+            "sample_token": tok,
+            "translation": [45.0, -40.0, 0.5],
+            "size": [2.0, 4.0, 1.5],
+            "rotation": [1.0, 0, 0, 0],
+            "velocity": [0.0, 0.0],
+            "detection_name": "car",
+            "detection_score": 0.3,
+            "attribute_name": "vehicle.moving",
+        })
+        results[tok] = dets
+
+    _write_tables(ver, (
+        ("scene", scene), ("sample", samples), ("sample_data", sample_data),
+        ("ego_pose", ego_pose), ("calibrated_sensor", calibrated),
+        ("sample_annotation", anns), ("instance", instances),
+        ("category", categories), ("attribute", []),
+        ("log", logs), ("map", maps),
+    ))
+    results_path = root / "cp_results.json"
+    with open(results_path, "w") as f:
+        json.dump({"results": results, "meta": {}}, f)
+
+    # infos pkl (create_data equivalent for the micro set)
+    infos = []
+    for i, tok in enumerate(sample_tokens):
+        infos.append({
+            "token": tok,
+            "lidar_path": str(root / "sweeps" / f"LIDAR_TOP_{i}.bin"),
+            "sweeps": [],
+        })
+    infos_path = root / "infos.pkl"
+    with open(infos_path, "wb") as f:
+        pickle.dump(infos, f)
+
+    return dict(root=root, results=results_path, infos=infos_path, tokens=sample_tokens)

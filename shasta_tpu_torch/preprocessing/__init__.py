@@ -1,3 +1,9 @@
-"""The GT affinity labels of training (the port of the JAX package's
-preprocessing/associate.py, gt_shasta.py and nuscenes_chain._mot_rows):
-numpy only. The rest of the JAX offline chain is not ported."""
+"""Offline preprocessing, the port of shasta_tpu/preprocessing/: the
+nuScenes artifact tree (data/nusc_preprocessed) that the port's CLIs read.
+
+Mirrors the reference preprocessing chain (preprocessing.sh:1-27) with the
+same on-disk formats, without the nuscenes-devkit (the raw nuScenes JSON
+tables are read directly by nusc_db): nusc_db, nuscenes_chain, infos,
+det_tools, stats and the GT affinity labels of training (associate,
+gt_shasta). Numpy only.
+"""

@@ -404,3 +404,40 @@ def test_data_parallel_step_over_cards(tmp_path):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards or more")
     run_data_parallel_step("cuda", torch.cuda.device_count(), tmp_path)
+
+
+@pytest.mark.gpu
+def test_mot_distance_matrices_on_the_card(tmp_path):
+    """association.compute_distance_matrix for iou and giou on the card
+    equals the CPU result at 1e-5, on a frame of a small synthetic world
+    (its detections against the previous frame's), and the oracle
+    tracker's MOTModel gives the same tracks on both devices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+
+    import numpy as np
+
+    from shasta_tpu_torch.data.synthetic import build_synthetic_world
+    from shasta_tpu_torch.mot import FrameData, MOTModel
+    from shasta_tpu_torch.mot.association import compute_distance_matrix
+    from shasta_tpu_torch.preprocessing.gt_shasta import mot_rows
+
+    fx = build_synthetic_world(tmp_path, n_scenes=1, n_frames=6, n_objects=20, fp_per_frame=20)
+    with open(fx["results"]) as f:
+        results = json.load(f)["results"]
+    frames = [mot_rows([d["translation"] + d["size"] + d["rotation"] + [d["detection_score"]]
+                        for d in results[f"s0f{i}"]]) for i in range(6)]
+    for kind in ("iou", "giou"):
+        for prev, curr in zip(frames, frames[1:]):
+            got = compute_distance_matrix(curr, prev, kind, device="cuda")
+            want = compute_distance_matrix(curr, prev, kind, device="cpu")
+            assert got.dtype == want.dtype == np.float32
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    tracks = {}
+    for dev in ("cuda", "cpu"):
+        model = MOTModel(device=dev)
+        tracks[dev] = [[(tid, s) for _, tid, s, _ in model.frame_mot(
+            FrameData(dets=d, det_types=["car"] * len(d), time_stamp=0.5 * i))]
+            for i, d in enumerate(frames)]
+    assert tracks["cuda"] == tracks["cpu"]

@@ -142,9 +142,25 @@ Phases (any failure ends the run with a non-zero exit code):
      sorted_lookup + 21 gather_conv per frame, counted), the path's lookups
      and convs against their plain versions on two frames of that tree (a
      scene's first key frame, with no sweep, and its last, with 9) and, at a
-     small configuration, the same CLI on cuda == on cpu.
+     small configuration, the same CLI on cuda == on cpu;
+  19. the Waymo readers, the Waymo oracle and the renderers (phase_waymo):
+     synthetic raw segments (data.synthetic.build_synthetic_waymo, 2 x 20
+     frames at 10 Hz: a real segment has ~198 frames, the one cut; the TOP
+     lidar's 64 x 2650 range images with their pixel pose and four 200 x
+     600 lasers, two returns each, zlib-compressed MatrixFloats, ~150k
+     valid returns and 80 labelled objects a frame; GT and detection
+     Objects bins, 150 boxes a frame) through tools.extract_waymo with
+     every flag and tools.create_data --waymo, each stage timed per
+     segment; load_waymo_scene -> MOTModel on cuda and on cpu (ids and
+     eval_waymo_tracking's summaries equal, frames/s), write_objects_bin
+     decoded back; tools.track_scene --render over the first scene of phase
+     15's split (12 sorted_lookup + 21 gather_conv per frame, counted; the
+     PNG's pixels equal render_scene_tracks' on the JSON) and
+     tools.visualize_scene over the micro tree (6 files). Without
+     matplotlib the two renders print "not run (matplotlib absent)" and the
+     serving runs all the same.
 The line before the last is {"kernels": [...]} (launches per main path
-from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16, 17 and 18,
+from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16, 17, 18 and 19,
 each counted from 0 just before it; times from phases 3-3d, 8 and 15-18);
 the last is {"ok": true, "device": {...}}. Imports nothing of JAX or of the
 JAX package.
@@ -1833,6 +1849,261 @@ def phase_chain(kernels, smi):
         small_annotations=k)
 
 
+# phase 19: 2 Waymo segments of 20 frames at 10 Hz (a real segment has ~198:
+# the one cut), at the real widths (TOP 64 x 2650, four 200 x 600 lasers, two
+# returns, ~150k valid returns a frame), 80 labelled objects and 150
+# detections a frame
+WAYMO_SEGMENTS, WAYMO_FRAMES = 2, 20
+WAYMO_WORLD = dict(n_segments=WAYMO_SEGMENTS, n_frames=WAYMO_FRAMES, n_objects=80,
+                   dets_per_frame=150, seed=19)
+
+
+def timed_calls(module, names, seconds, label=lambda name, args: name):
+    """Wrap module.<name> for each name so that each call's wall time adds
+    to seconds[label(name, args)]; returns a function that undoes it."""
+    originals = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                key = label(name, args)
+                seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+        return timed
+
+    for n, fn in originals.items():
+        setattr(module, n, wrap(n, fn))
+    return lambda: [setattr(module, n, fn) for n, fn in originals.items()]
+
+
+def same_pixels(a, b) -> bool:
+    """Two PNGs decode to the same pixels."""
+    import numpy as np
+    from PIL import Image
+
+    with Image.open(a) as x, Image.open(b) as y:
+        pa, pb = np.asarray(x.convert("RGBA")), np.asarray(y.convert("RGBA"))
+    return pa.shape == pb.shape and bool(np.array_equal(pa, pb))
+
+
+def phase_waymo(kernels, smi):
+    """Phase 19: the Waymo readers and the renderers. Synthetic raw segments
+    (data.synthetic.build_synthetic_waymo, WAYMO_WORLD) go through
+    tools.extract_waymo with every flag (--gt_bin, --det_bin/--det_name,
+    --no_frame_gt, --raw_pc, --ground_removal), each stage timed per
+    segment, then into the {split}/{lidar,annos} pkl tree and
+    tools.create_data --waymo (10-sweep chains; load_waymo_points over the
+    last frame's). Each segment is tracked by load_waymo_scene ->
+    waymo_scene_to_mot_frames -> MOTModel on cuda and with device="cpu":
+    per-frame ids and eval_waymo_tracking's summaries exactly equal,
+    frames/s on both; write_objects_bin of the cuda tracks decodes back to
+    the same boxes and ids. Then tools.track_scene --render serves the
+    first scene of phase 15's split (write_track_split, seed 15, one scene:
+    the same frames, whose lookups and convs phase 15 holds against their
+    plain versions) at the full car configuration, 12 sorted_lookup + 21
+    gather_conv per frame counted; its PNG equals render_scene_tracks on
+    the JSON, pixel for pixel; and tools.visualize_scene renders the micro
+    tree (6 files). Without matplotlib the renders are not run and say so;
+    the serving runs all the same. Returns (launches, numbers)."""
+    import importlib.util
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from shasta_tpu_torch.data.synthetic import (build_micro_nusc, build_synthetic_waymo,
+                                                 write_split_config, write_track_split,
+                                                 write_waymo_pkl_tree)
+    from shasta_tpu_torch.data.waymo import (decode_objects_bin, eval_waymo_tracking,
+                                             load_waymo_scene, waymo_scene_to_mot_frames,
+                                             write_objects_bin)
+    from shasta_tpu_torch.data.waymo_decode import load_waymo_points
+    from shasta_tpu_torch.mot import MOTModel
+    from shasta_tpu_torch.tools import create_data, extract_waymo, track_scene, visualize_scene
+    from shasta_tpu_torch.utils import Config
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "work_dirs", "chip_smoke_waymo")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stage_s = {}
+    t0 = time.perf_counter()
+    raw = build_synthetic_waymo(os.path.join(root, "raw"), **WAYMO_WORLD)
+    stage_s["write segments"] = time.perf_counter() - t0
+    n_frames = WAYMO_SEGMENTS * WAYMO_FRAMES
+    check(all(140_000 <= p <= 160_000 for p in raw["points"]),
+          f"waymo: valid returns of the first frames {raw['points']}")
+
+    # the extraction CLI, every flag, its stages timed
+    mot = os.path.join(root, "mot")
+    det_name = "cp"
+    undo = timed_calls(extract_waymo, ("extract_waymo_segment", "decode_objects_bin",
+                                       "extract_raw_pc", "remove_ground_tree"), stage_s,
+                       lambda n, a: f"{n} {a[2]}" if n == "decode_objects_bin" else n)
+    try:
+        segs = extract_waymo.main(
+            ["--data_folder", str(raw["records"]), "--output_folder", mot, "--gt_bin",
+             str(raw["gt_bin"]), "--det_bin", str(raw["det_bin"]), "--det_name", det_name,
+             "--no_frame_gt", "--raw_pc", "--ground_removal"])
+    finally:
+        undo()
+    check(segs == sorted(f"segment-{n}_with_camera_labels" for n in raw["segments"]),
+          f"extract_waymo: segments {segs}")
+    split_frame0 = {}  # raw, clean and ground points of each segment's first frame
+    for seg in segs:
+        pc = {sub: np.load(os.path.join(mot, "pc", sub, seg + ".npz"))
+              for sub in ("raw_pc", "clean_pc", "ground_pc")}
+        check(len(pc["raw_pc"].files) == WAYMO_FRAMES, f"{seg}: raw_pc frames")
+        for k in pc["raw_pc"].files:
+            n = [len(pc[sub][k]) for sub in ("raw_pc", "clean_pc", "ground_pc")]
+            check(140_000 <= n[0] <= 160_000 and 0 < n[1] < n[0] and 0 < n[2] < n[0]
+                  and n[1] + n[2] <= n[0],
+                  f"{seg} frame {k}: {n[0]} points, {n[1]} clean, {n[2]} ground")
+            split_frame0.setdefault(seg, n)
+        gt = np.load(os.path.join(mot, "gt_info", seg + ".npz"), allow_pickle=True)
+        dets = np.load(os.path.join(mot, "detections", det_name, "dets", seg + ".npz"),
+                       allow_pickle=True)
+        check([len(b) for b in gt["bboxes"]] == [WAYMO_WORLD["n_objects"]] * WAYMO_FRAMES
+              and [len(b) for b in dets["bboxes"]] == [WAYMO_WORLD["dets_per_frame"]]
+              * WAYMO_FRAMES and len(dets["velos"]) == WAYMO_FRAMES,
+              f"{seg}: GT or detection rows per frame")
+    # the {split}/{lidar,annos} pkl tree and create_data --waymo
+    pkl = os.path.join(root, "pkl")
+    t0 = time.perf_counter()
+    write_waymo_pkl_tree(str(raw["records"]), pkl, "train")
+    stage_s["pkl tree (decode_frame + decode_annos)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    infos_path = create_data.main(["--waymo", "--dataroot", pkl, "--split", "train"])
+    stage_s["create_data --waymo"] = time.perf_counter() - t0
+    with open(infos_path, "rb") as f:
+        infos = pickle.load(f)
+    check(len(infos) == n_frames and len(infos[-1]["sweeps"]) == 9
+          and all(len(i["gt_boxes"]) for i in infos),
+          f"create_data --waymo: {len(infos)} infos, the last with "
+          f"{len(infos[-1]['sweeps'])} sweeps")
+    t0 = time.perf_counter()
+    pts = load_waymo_points(infos[-1], nsweeps=10)
+    stage_s["load_waymo_points, 10 sweeps"] = time.perf_counter() - t0
+    check(pts.shape[1] == 6 and len(pts) > 10 * 140_000 and bool(np.isfinite(pts).all()),
+          f"load_waymo_points: {pts.shape}")
+    per_segment = {k: v / WAYMO_SEGMENTS for k, v in stage_s.items()
+                   if k != "load_waymo_points, 10 sweeps"}
+    print(f"phase 19: {WAYMO_SEGMENTS} Waymo segments x {WAYMO_FRAMES} frames (depth cut from "
+          f"~198 a segment), {raw['points']} valid returns in the first frames; seconds per "
+          f"segment {({k: round(v, 4) for k, v in per_segment.items()})}; load_waymo_points "
+          f"over 10 sweeps {stage_s['load_waymo_points, 10 sweeps']:.3f} s ({len(pts)} points)")
+
+    # the oracle tracker over the Waymo scenes, cuda against cpu
+    ids, results, seconds = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        ids[dev], results[dev] = {}, {}
+        t0 = time.perf_counter()
+        for seg in segs:
+            model = MOTModel(device=dev)
+            frames = [[{"id": tid, "bbox": row, "type": typ}
+                       for row, tid, _, typ in model.frame_mot(fd)]
+                      for fd in waymo_scene_to_mot_frames(load_waymo_scene(mot, seg, det_name))]
+            results[dev][seg] = frames
+            ids[dev][seg] = [[h["id"] for h in f] for f in frames]
+        seconds[dev] = time.perf_counter() - t0
+    check(ids["cuda"] == ids["cpu"], "waymo tracking: ids differ on cuda and cpu")
+    summary = {d: eval_waymo_tracking(mot, results[d], det_name=det_name) for d in ("cuda", "cpu")}
+    check(summary["cuda"] == summary["cpu"],
+          f"waymo tracking: summaries differ: {summary['cuda']} vs {summary['cpu']}")
+    fps = {d: n_frames / seconds[d] for d in seconds}
+    n_ids = len({i for v in ids["cuda"].values() for f in v for i in f})
+    # the cuda tracks as an Objects bin, decoded back
+    ts = {seg: t for seg, t in zip(segs, raw["timestamps"])}
+    bin_path = os.path.join(root, "tracking_pred.bin")
+    n_obj = write_objects_bin({seg: {"timestamps": ts[seg], "frames": [
+        [dict(h, id=str(h["id"])) for h in f] for f in results["cuda"][seg]]} for seg in segs},
+        bin_path)
+    decode_objects_bin(bin_path, mot, "tracking_back")
+    for seg in segs:
+        back = np.load(os.path.join(mot, "tracking_back", seg + ".npz"), allow_pickle=True)
+        for fi, frame in enumerate(results["cuda"][seg]):
+            check(list(back["ids"][fi]) == [str(h["id"]) for h in frame]
+                  and np.allclose(np.asarray(back["bboxes"][fi], float).reshape(-1, 8)[:, :7],
+                                  np.asarray([h["bbox"][:7] for h in frame]).reshape(-1, 7),
+                                  atol=1e-5),
+                  f"{seg} frame {fi}: the tracking bin does not decode back")
+    veh = summary["cuda"]["vehicle"]
+    print(f"phase 19: MOTModel (giou, bipartite, kf) over {n_frames} Waymo frames: cuda "
+          f"{fps['cuda']:.3f} frames/s, cpu {fps['cpu']:.3f} frames/s ({smi}); ids and "
+          f"eval_waymo_tracking equal on both ({n_ids} ids; vehicle MOTA {veh['mota']:.4f}); "
+          f"{n_obj} tracked objects written to an Objects bin and decoded back")
+
+    # track_scene --render over the first scene of phase 15's split
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    car = os.path.join(repo, "configs", "nusc", "car.py")
+    sp = write_track_split(os.path.join(root, "split"), Config.fromfile(car), n_scenes=1,
+                           n_frames=SERVE_FRAMES, seed=15)
+    cfg_path = write_split_config(car, sp["val"], os.path.join(root, "car.py"))
+    ckpt = random_checkpoint(Config.fromfile(cfg_path), os.path.join(root, "car.pth"), seed=15)
+    png = os.path.join(root, "tracks.png")
+    out = os.path.join(root, "tracking_result.json")
+    args = ["--config", cfg_path, "--checkpoint", ckpt, "--out", out]
+    t0 = time.perf_counter()
+    result, launches = counted(kernels, lambda: track_scene.main(
+        args + (["--render", png] if have_mpl else [])))
+    serve_s = time.perf_counter() - t0
+    want = {k.__name__: 0 for k in kernels}
+    want.update(sorted_lookup=12 * SERVE_FRAMES, gather_conv=21 * SERVE_FRAMES)
+    check(launches == want, f"track_scene --render: expected 12 sorted_lookup + 21 gather_conv "
+                            f"launches per frame, got {launches}")
+    check(list(result["results"]) == sp["tokens"], "track_scene --render: tokens out of order")
+    render = {}
+    if have_mpl:
+        from shasta_tpu_torch.viz.visualizer2d import render_scene_tracks
+
+        with open(out) as f:
+            t0 = time.perf_counter()
+            render_scene_tracks(json.load(f)["results"], os.path.join(root, "again.png"))
+            render["render_scene_tracks_s"] = time.perf_counter() - t0
+        check(os.path.exists(png) and same_pixels(png, os.path.join(root, "again.png")),
+              "track_scene --render: the PNG differs from render_scene_tracks on the JSON")
+        micro = build_micro_nusc(os.path.join(root, "micro"))
+        tr = os.path.join(root, "micro_tracks.json")
+        with open(micro["results"]) as f:
+            dets = json.load(f)["results"]
+        with open(tr, "w") as f:
+            json.dump({"results": {tok: [dict(d, tracking_id=str(k + 1),
+                                              tracking_name=d["detection_name"],
+                                              tracking_score=d["detection_score"])
+                                         for k, d in enumerate(v)] for tok, v in dets.items()}},
+                      f)
+        t0 = time.perf_counter()
+        written = visualize_scene.main(
+            ["--dataroot", str(micro["root"]), "--version", "v1.0-mini", "--scene_name",
+             "scene-0001", "--track_result_path", tr, "--save_path", os.path.join(root, "viz"),
+             "--nsweeps", "2"])
+        render["visualize_scene_s"] = time.perf_counter() - t0
+        check(len(written) == 6 and all(os.path.getsize(w) > 5_000 for w in written),
+              f"visualize_scene: {len(written)} files")
+        print(f"phase 19: track_scene --render over {SERVE_FRAMES} frames in {serve_s:.3f} s, "
+              f"launches {launches}; the PNG equals render_scene_tracks on the JSON "
+              f"({render['render_scene_tracks_s']:.3f} s); visualize_scene wrote 6 files in "
+              f"{render['visualize_scene_s']:.3f} s")
+    else:
+        print(f"phase 19: track_scene over {SERVE_FRAMES} frames in {serve_s:.3f} s, launches "
+              f"{launches}; render: not run (matplotlib absent); visualize_scene: not run "
+              f"(matplotlib absent)")
+    seconds_phase = time.perf_counter() - t_phase
+    print(f"phase 19: {seconds_phase:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, dict(
+        seconds_per_segment=per_segment, load_waymo_points_s=stage_s[
+            "load_waymo_points, 10 sweeps"], valid_returns_first_frames=raw["points"],
+        raw_clean_ground_points_frame0=split_frame0, oracle_frames=n_frames,
+        oracle_frames_per_s_cuda=fps["cuda"], oracle_frames_per_s_cpu=fps["cpu"],
+        oracle_ids=n_ids, summary=summary["cuda"], track_scene_s=serve_s,
+        matplotlib=have_mpl, render=render or "not run (matplotlib absent)",
+        seconds=seconds_phase)
+
+
 def bound_of(rec) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") of a kernel record's counted
     bytes and operations on the H100 (shasta_tpu_torch.timing)."""
@@ -2106,6 +2377,9 @@ def main() -> int:
         kernels, smi)
     gather_paths.update(gather18)
 
+    # 19. the Waymo readers, the Waymo oracle and the renderers
+    path_launches["19: track_scene --render"], waymo = phase_waymo(kernels, smi)
+
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
                              "shasta_tpu/ops/pallas/block_conv.py:117", "B=1 frame with plans"),
            "keyed_conv": ("shasta_tpu_torch/csrc/window_conv.cu",
@@ -2161,6 +2435,7 @@ def main() -> int:
                       "classes7_frames_per_s": fps7, "classes7_frames_per_s_runs": fps7_runs,
                       "classes7_peak_device_gib": peak_gb, "serving": serving,
                       "eval_flow": eval_flow, "training": training, "chain": chain,
+                      "waymo": waymo,
                       "card": smi, "host": host,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out_kernels}))

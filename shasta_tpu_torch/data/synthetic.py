@@ -12,6 +12,10 @@
   key-frame infos pickle) that the offline chain (preprocessing/) reads;
   copies of tests/fixtures_nusc.py's builders, which write the same tables,
   clouds, results and infos for the same arguments.
+- `build_synthetic_waymo`: raw Waymo segments (TFRecords of Frame protos
+  with range images, GT and detection Objects bins) that the Waymo
+  extraction reads; `write_waymo_pkl_tree` decodes them into the
+  {split}/{lidar,annos} pkl tree of create_data --waymo.
 """
 from __future__ import annotations
 
@@ -667,3 +671,208 @@ def build_micro_nusc(tmp_path):
         pickle.dump(infos, f)
 
     return dict(root=root, results=results_path, infos=infos_path, tokens=sample_tokens)
+
+
+# ---------------------------------------------------------------------------
+# Raw Waymo segments: TFRecords of Frame protos and Objects bins
+# ---------------------------------------------------------------------------
+
+# Waymo's five lasers (dataset.proto LaserName): TOP 64 beams listed in the
+# calibration, the four short-range lasers with only an inclination range;
+# mount (x, y, z, yaw) on the vehicle
+_WAYMO_LASERS = (
+    (1, (1.43, 0.0, 2.18, 0.0), (-0.307, 0.042)),
+    (2, (4.07, 0.0, 0.69, 0.0), (-1.571, 0.524)),
+    (3, (3.24, 1.03, 0.98, np.pi / 2), (-1.571, 0.524)),
+    (4, (3.24, -1.03, 0.98, -np.pi / 2), (-1.571, 0.524)),
+    (5, (-1.15, 0.0, 0.46, np.pi), (-1.571, 0.524)),
+)
+# share of valid pixels per (laser kind, return): ~150k returns a frame
+# at the real widths (TOP 64 x 2650, the others 200 x 600)
+_WAYMO_VALID = {("top", 1): 0.85, ("top", 2): 0.02, ("side", 1): 0.01, ("side", 2): 0.002}
+# Label.Type -> (length, width, height) of the synthetic objects
+_WAYMO_SIZES = {1: (4.6, 2.0, 1.7), 2: (0.9, 0.9, 1.8), 4: (1.8, 0.7, 1.7)}
+
+
+def _pose(yaw, t) -> np.ndarray:
+    m = np.eye(4)
+    c, s = np.cos(yaw), np.sin(yaw)
+    m[:2, :2] = [[c, -s], [s, c]]
+    m[:3, 3] = t
+    return m
+
+
+def _waymo_range_image(rng, hw, incl_top_first, height, valid):
+    """(H, W, 4) [range, intensity, elongation, nlz]: rows that look down
+    hit a flat ground at the mount's height, the others a wall 10-75 m
+    away; empty pixels hold range -1."""
+    h, w = hw
+    ground = height / np.sin(np.maximum(-incl_top_first, 1e-3))
+    r = np.where(incl_top_first < -0.02, np.minimum(ground, 75.0), 0.0)[:, None]
+    r = r + np.where(r > 0, 0.0, rng.uniform(10.0, 75.0, (h, w)))
+    r = r + rng.normal(0.0, 0.02, (h, w))
+    mask = rng.random((h, w)) < valid
+    ri = np.zeros((h, w, 4), np.float32)
+    ri[..., 0] = np.where(mask, r, -1.0)
+    ri[..., 1] = np.where(mask, rng.random((h, w)), 0.0)
+    ri[..., 2] = np.where(mask, 0.5 * rng.random((h, w)), 0.0)
+    ri[..., 3] = np.where(mask, -1.0, 0.0)
+    return ri
+
+
+def build_synthetic_waymo(root, n_segments=2, n_frames=20, top_hw=(64, 2650),
+                          side_hw=(200, 600), n_objects=80, dets_per_frame=150,
+                          miss_prob=0.1, det_noise=0.2, seed=0):
+    """Raw Waymo segments under root, written with the port's codec
+    (data.waymo_protos, data.tfrecord): records/segment-*.tfrecord of Frame
+    protos at 10 Hz (the five lasers' two returns as zlib-compressed
+    MatrixFloat range images, the TOP lidar's per-pixel pose, the laser
+    calibrations, the vehicle pose and the frame's labelled objects in the
+    vehicle frame), gt.bin (the labels as metrics Objects) and dets.bin
+    (dets_per_frame boxes a frame: the objects detected with noise, missed
+    with miss_prob, and false positives). The ego drives at 10 m/s; the
+    objects move at constant velocity around it. Returns dict(records (the
+    record directory), gt_bin, det_bin, segments (context names),
+    timestamps (per segment), points (valid returns of each segment's
+    first frame))."""
+    from .tfrecord import write_tfrecord
+    from .waymo_protos import encode_frame, encode_matrix_float, encode_objects
+
+    root = pathlib.Path(root)
+    rec_dir = root / "records"
+    rec_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    gt_rows, det_rows, segments, stamps, points = [], [], [], [], []
+    for k in range(n_segments):
+        name = f"{seed:05d}{k:04d}_0000_000_0200_000"
+        segments.append(name)
+        types = rng.choice([1, 1, 1, 2, 4], n_objects)
+        pos = rng.uniform(-60.0, 60.0, (n_objects, 2)) + [[30.0, 0.0]]
+        vel = rng.normal(0.0, 3.0, (n_objects, 2)) * (types == 1)[:, None]
+        vel += rng.normal(0.0, 1.0, (n_objects, 2))
+        yaw_obj = np.arctan2(vel[:, 1], vel[:, 0])
+        npts = np.where(rng.random(n_objects) < 0.1, 0, rng.integers(1, 500, n_objects))
+        level = np.where(rng.random(n_objects) < 0.2, 2, 0)
+        top_incl = np.sort(rng.uniform(*_WAYMO_LASERS[0][2], top_hw[0]))  # bottom-up
+        calibs = [{
+            "name": laser,
+            "extrinsic": {"transform": [float(v) for v in _pose(myaw, (mx, my, mz)).reshape(-1)]},
+            **({"beam_inclinations": [float(v) for v in top_incl]} if laser == 1 else {
+                "beam_inclination_min": rng_incl[0], "beam_inclination_max": rng_incl[1]}),
+        } for laser, (mx, my, mz, myaw), rng_incl in _WAYMO_LASERS]
+        ts0 = 1_550_000_000_000_000 + 10**9 * k
+        payloads, seg_ts = [], []
+        for i in range(n_frames):
+            t = 0.1 * i
+            ego_yaw = 0.02 * t
+            pose = _pose(ego_yaw, (10.0 * t, 0.5 * t, 0.0))
+            ts = ts0 + 100_000 * i
+            seg_ts.append(ts)
+            lasers, n_valid = [], 0
+            for laser, (_, _, mz, _), incl_range in _WAYMO_LASERS:
+                kind = "top" if laser == 1 else "side"
+                hw = top_hw if kind == "top" else side_hw
+                incl = (top_incl if kind == "top" else
+                        (np.arange(hw[0]) + 0.5) / hw[0] * (incl_range[1] - incl_range[0])
+                        + incl_range[0])[::-1]
+                entry = {"name": laser}
+                for ret in (1, 2):
+                    ri = _waymo_range_image(rng, hw, incl, mz, _WAYMO_VALID[(kind, ret)])
+                    n_valid += int((ri[..., 0] > 0).sum())
+                    msg = {"range_image_compressed": zlib.compress(encode_matrix_float(ri), 1)}
+                    if kind == "top" and ret == 1:
+                        # rolling shutter: the columns span the 0.1 s sweep
+                        dt = (np.arange(hw[1]) / hw[1] - 0.5) * 0.1
+                        pp = np.zeros(hw + (6,), np.float32)
+                        pp[..., 2] = ego_yaw + 0.002 * dt
+                        pp[..., 3] = pose[0, 3] + 10.0 * dt
+                        pp[..., 4] = pose[1, 3] + 0.5 * dt
+                        msg["range_image_pose_compressed"] = zlib.compress(
+                            encode_matrix_float(pp), 1)
+                    entry[f"ri_return{ret}"] = msg
+                lasers.append(entry)
+            if i == 0:
+                points.append(n_valid)
+            # objects: global -> this frame's vehicle frame
+            p_glob = pos + vel * t
+            rel = (p_glob - pose[:2, 3]) @ pose[:2, :2]
+            heading = yaw_obj - ego_yaw
+            labels = []
+            for j in range(n_objects):
+                length, width, height = _WAYMO_SIZES[int(types[j])]
+                labels.append({
+                    "box": {"center_x": float(rel[j, 0]), "center_y": float(rel[j, 1]),
+                            "center_z": 0.5 * height, "width": width, "length": length,
+                            "height": height, "heading": float(heading[j])},
+                    "metadata": {"speed_x": float(vel[j, 0]), "speed_y": float(vel[j, 1]),
+                                 "accel_x": 0.0, "accel_y": 0.0},
+                    "type": int(types[j]), "id": f"{name}-obj{j}",
+                    "detection_difficulty_level": int(level[j]),
+                    "num_lidar_points_in_box": int(npts[j]),
+                })
+                gt_rows.append({"object": labels[-1], "score": 1.0, "context_name": name,
+                                "frame_timestamp_micros": ts})
+            payloads.append(encode_frame({
+                "context": {"name": name,
+                            "stats": {"location": "location_sf", "time_of_day": "Day",
+                                      "weather": "sunny"},
+                            "laser_calibrations": calibs},
+                "timestamp_micros": ts,
+                "pose": {"transform": [float(v) for v in pose.reshape(-1)]},
+                "lasers": lasers,
+                "laser_labels": labels,
+            }))
+            seen = np.flatnonzero(rng.random(n_objects) >= miss_prob)
+            n_fp = max(dets_per_frame - len(seen), 0)
+            fp_types = rng.choice([1, 2, 4], n_fp)
+            fp_xy = rng.uniform(-75.0, 75.0, (n_fp, 2))
+            for j, typ, xy, score in (
+                    [(j, types[j], rel[j] + rng.normal(0.0, det_noise, 2), rng.uniform(0.5, 1.0))
+                     for j in seen]
+                    + [(None, fp_types[f], fp_xy[f], rng.uniform(0.05, 0.5))
+                       for f in range(n_fp)]):
+                length, width, height = _WAYMO_SIZES[int(typ)]
+                head = heading[j] if j is not None else rng.uniform(-np.pi, np.pi)
+                v = vel[j] if j is not None else np.zeros(2)
+                det_rows.append({
+                    "object": {
+                        "box": {"center_x": float(xy[0]), "center_y": float(xy[1]),
+                                "center_z": 0.5 * height, "width": width, "length": length,
+                                "height": height,
+                                "heading": float(head + rng.normal(0.0, 0.05))},
+                        "metadata": {"speed_x": float(v[0]), "speed_y": float(v[1])},
+                        "type": int(typ),
+                    },
+                    "score": float(score), "context_name": name,
+                    "frame_timestamp_micros": ts,
+                })
+        write_tfrecord(str(rec_dir / f"segment-{name}_with_camera_labels.tfrecord"), payloads)
+        stamps.append(seg_ts)
+    gt_bin, det_bin = root / "gt.bin", root / "dets.bin"
+    gt_bin.write_bytes(encode_objects(gt_rows))
+    det_bin.write_bytes(encode_objects(det_rows))
+    return dict(records=rec_dir, gt_bin=gt_bin, det_bin=det_bin, segments=segments,
+                timestamps=stamps, points=points)
+
+
+def write_waymo_pkl_tree(records, root, split="train") -> list[str]:
+    """The {split}/{lidar,annos}/seq_{s}_frame_{f}.pkl tree that
+    create_data --waymo reads (det3d's waymo_converter layout): per frame of
+    record s (sorted by name), data.waymo_decode.decode_frame's lidar dict
+    and decode_annos' annotations. Returns the pkl names."""
+    from .tfrecord import read_tfrecord
+    from .waymo_decode import decode_annos, decode_frame
+    from .waymo_protos import parse_frame
+
+    names = []
+    for sub in ("lidar", "annos"):
+        os.makedirs(os.path.join(root, split, sub), exist_ok=True)
+    for s, rec in enumerate(sorted(os.listdir(records))):
+        for f, payload in enumerate(read_tfrecord(os.path.join(records, rec))):
+            frame = parse_frame(payload)
+            name = f"seq_{s}_frame_{f}.pkl"
+            for sub, obj in (("lidar", decode_frame(frame, f)), ("annos", decode_annos(frame, f))):
+                with open(os.path.join(root, split, sub, name), "wb") as fh:
+                    pickle.dump(obj, fh)
+            names.append(name)
+    return names

@@ -4,24 +4,27 @@
         --version v1.0-trainval \\
         --out data/nusc_preprocessed/infos_train_10sweeps_withvelo_filter_True.pkl \\
         [--scenes_file train_scenes.txt] [--nsweeps 10] [--no_gt]
+    python -m shasta_tpu_torch.tools.create_data --waymo --dataroot data/Waymo \\
+        --split train [--nsweeps 1]
 
-The --waymo branch needs the Waymo readers, which are not ported yet
-(ROADMAP.md queue 1 item 1d); it refuses.
+--waymo builds the infos over a {split}/{lidar,annos} pkl tree
+(waymo_common.py:307-320, data.waymo_decode.create_waymo_infos).
 """
 from __future__ import annotations
 
 import argparse
 
+from ..data.waymo_decode import create_waymo_infos
 from ..preprocessing.infos import create_nuscenes_infos
 from .make_scenes import read_scene_names
 
 
-def main(argv=None) -> list:
+def main(argv=None):
+    """Writes the infos; returns them (nuScenes) or the pkl's path (--waymo)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dataroot", required=True)
     ap.add_argument("--waymo", action="store_true",
-                    help="build Waymo infos over a {split}/{lidar,annos} pkl tree "
-                         "(not ported yet: ROADMAP.md queue 1 item 1d)")
+                    help="build Waymo infos over a {split}/{lidar,annos} pkl tree")
     ap.add_argument("--split", default="train", help="Waymo split (--waymo)")
     ap.add_argument("--version", default="v1.0-trainval")
     ap.add_argument("--out", default=None)
@@ -32,8 +35,9 @@ def main(argv=None) -> list:
     args = ap.parse_args(argv)
 
     if args.waymo:
-        ap.error("--waymo needs the port of the Waymo readers (data/waymo_decode.py), "
-                 "ROADMAP.md queue 1 item 1d, which is not done yet")
+        out = create_waymo_infos(args.dataroot, args.split, args.nsweeps)
+        print(f"wrote waymo infos -> {out}")
+        return out
     if not args.out:
         ap.error("--out is required for nuScenes infos")
 

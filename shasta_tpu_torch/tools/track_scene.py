@@ -3,9 +3,11 @@ tools/track_scene.py. Each frame runs the whole step (trunk, affinity,
 decision rules, tracker) on the device; the host reads back O(N) values.
 
     python -m shasta_tpu_torch.tools.track_scene --config configs/nusc/car.py \\
-        --checkpoint work_dirs/car/latest.pth --out tracking_result.json [--cpu]
+        --checkpoint work_dirs/car/latest.pth --out tracking_result.json [--cpu] \\
+        [--render tracks.png]
 
-Runs on the card unless --cpu is given.
+Runs on the card unless --cpu is given; --render draws the tracks' BEV
+trajectories on the host after serving (viz.visualizer2d, matplotlib).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import os
 
 from ..infer import track_scene_dataset
 from ..utils import Config
+from ..viz.visualizer2d import render_scene_tracks
 from .common import build_dataset, build_pipeline, load_model
 
 
@@ -27,11 +30,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--split", default="val")
     ap.add_argument("--out", default="work_dirs/track_scene/tracking_result.json")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (default: cuda)")
-    ap.add_argument("--render", default=None,
-                    help="BEV png path: needs the port of shasta_tpu/viz/, not done yet")
+    ap.add_argument("--render", default=None, help="optional BEV png path")
     args = ap.parse_args(argv)
-    if args.render:
-        ap.error("--render needs the port of shasta_tpu/viz/, which is not done yet")
 
     cfg = Config.fromfile(args.config)
     model = load_model(cfg, args.checkpoint, "cpu" if args.cpu else "cuda")
@@ -41,6 +41,10 @@ def main(argv=None) -> dict:
     with open(args.out, "w") as f:
         json.dump(result, f)
     print(f"wrote {args.out} ({len(result['results'])} frames)")
+
+    if args.render:
+        render_scene_tracks(result["results"], args.render)
+        print(f"rendered {args.render}")
     return result
 
 

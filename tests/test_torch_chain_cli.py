@@ -26,6 +26,7 @@ from test_torch_mot import padded_jit_geometry
 from shasta_tpu.mot import association as jassociation
 from shasta_tpu.mot import redundancy as jredundancy
 
+from shasta_tpu_torch.data.synthetic import build_synthetic_waymo, write_waymo_pkl_tree
 from shasta_tpu_torch.tools import (check_artifacts, create_data, estimate_stats, make_scenes,
                                     preprocess_nuscenes, run_oracle_mot)
 
@@ -99,6 +100,8 @@ def test_preprocess_nuscenes_equals_jax(case, trees, tmp_path, monkeypatch):
 
 
 def test_create_data_equals_jax(trees, tmp_path, monkeypatch, capsys):
+    """nuScenes infos, and --waymo over a {split}/{lidar,annos} pkl tree of
+    two small synthetic segments: the same pkl and line as the JAX tool."""
     for tree, extra in (("micro", []), ("world", ["--no_gt", "--nsweeps", "3"])):
         base = ["--dataroot", str(trees[tree]["root"]), "--version", "v1.0-mini"] + extra
         got = create_data.main(base + ["--out", str(tmp_path / "port.pkl")])
@@ -107,11 +110,19 @@ def test_create_data_equals_jax(trees, tmp_path, monkeypatch, capsys):
         want = read_artifact(str(tmp_path / "jax.pkl"))
         same_value(read_artifact(str(tmp_path / "port.pkl")), want)
         same_value(got, want)
+    raw = build_synthetic_waymo(tmp_path / "waymo_raw", n_segments=2, n_frames=3,
+                                top_hw=(4, 32), side_hw=(2, 16), n_objects=5, dets_per_frame=6)
+    waymo_root = str(tmp_path / "waymo")
+    write_waymo_pkl_tree(str(raw["records"]), waymo_root, "val")
+    args = ["--dataroot", waymo_root, "--waymo", "--split", "val", "--nsweeps", "2"]
     capsys.readouterr()
-    with pytest.raises(SystemExit) as e:
-        create_data.main(["--dataroot", str(tmp_path), "--waymo"])
-    assert e.value.code == 2
-    assert "queue 1 item 1d" in capsys.readouterr().err
+    path = create_data.main(args)
+    port_out, got = capsys.readouterr().out, read_artifact(path)
+    assert run_jax("create_data", args, monkeypatch) == 0
+    assert capsys.readouterr().out == port_out == f"wrote waymo infos -> {path}\n"
+    same_value(got, read_artifact(path))
+    assert [i["token"] for i in got] == [f"seq_{s}_frame_{f}.pkl" for s in (0, 1) for f in range(3)]
+    assert got[1]["sweeps"][0]["transform_matrix"].shape == (4, 4)
 
 
 def test_check_artifacts_equals_jax(trees, tmp_path, monkeypatch, capsys):

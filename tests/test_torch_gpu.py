@@ -441,3 +441,34 @@ def test_mot_distance_matrices_on_the_card(tmp_path):
             FrameData(dets=d, det_types=["car"] * len(d), time_stamp=0.5 * i))]
             for i, d in enumerate(frames)]
     assert tracks["cuda"] == tracks["cpu"]
+
+
+@pytest.mark.gpu
+def test_waymo_tracking_on_the_card(tmp_path):
+    """One synthetic Waymo segment through the port's extraction, then
+    load_waymo_scene -> waymo_scene_to_mot_frames -> MOTModel on the card
+    and on the CPU: per-frame track ids and eval_waymo_tracking's summaries
+    exactly equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from shasta_tpu_torch.data.synthetic import build_synthetic_waymo
+    from shasta_tpu_torch.data.waymo import (eval_waymo_tracking, load_waymo_scene,
+                                             waymo_scene_to_mot_frames)
+    from shasta_tpu_torch.mot import MOTModel
+    from shasta_tpu_torch.tools import extract_waymo
+
+    raw = build_synthetic_waymo(tmp_path / "raw", n_segments=1, n_frames=8, top_hw=(16, 256),
+                                side_hw=(8, 64), n_objects=30, dets_per_frame=50)
+    out = str(tmp_path / "mot")
+    (seg,) = extract_waymo.main(["--data_folder", str(raw["records"]), "--output_folder", out,
+                                 "--gt_bin", str(raw["gt_bin"]), "--det_bin", str(raw["det_bin"])])
+    ids, summaries = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = MOTModel(device=dev)
+        frames = [[{"id": tid, "bbox": row, "type": typ} for row, tid, _, typ in
+                   model.frame_mot(fd)]
+                  for fd in waymo_scene_to_mot_frames(load_waymo_scene(out, seg))]
+        ids[dev] = [[h["id"] for h in f] for f in frames]
+        summaries[dev] = eval_waymo_tracking(out, {seg: frames})
+    assert ids["cuda"] == ids["cpu"] and sum(map(len, ids["cpu"])) > 0
+    assert summaries["cuda"] == summaries["cpu"]

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from fixtures_nusc import build_micro_nusc
 from shasta_tpu.data.nuscenes import NuScenesTrackDataset as JDataset
@@ -36,6 +37,7 @@ from shasta_tpu.tracker.runner import eval_tracking_lite as jeval_tracking_lite
 from shasta_tpu.train.checkpoint import load_checkpoint as jload_checkpoint
 from shasta_tpu.train.checkpoint import merge_pretrained as jmerge_pretrained
 from shasta_tpu.utils import Config as JConfig
+from shasta_tpu.viz.visualizer2d import render_scene_tracks as jrender_scene_tracks
 
 from shasta_tpu_torch.convert import load_jax_variables, random_jax_variables
 from shasta_tpu_torch.infer import track_scene_dataset
@@ -223,13 +225,19 @@ def test_track_scene_cli_writes_the_jax_result(tree, jax_result):
     ckpt = tree["tmp"] / "merged.pth"
     save_checkpoint(str(ckpt), merged)
     out = tree["tmp"] / "cli" / "tracking_result.json"
+    png = tree["tmp"] / "cli" / "tracks.png"
     track_scene.main(["--config", str(tree["cfgs"]["car"]), "--checkpoint", str(ckpt),
-                      "--cpu", "--out", str(out)])
+                      "--cpu", "--out", str(out), "--render", str(png)])
     with open(out) as f:
         _assert_same_result(json.load(f), jax_result)
-    with pytest.raises(SystemExit):  # --render waits for the viz/ port
-        track_scene.main(["--config", str(tree["cfgs"]["car"]), "--checkpoint", str(ckpt),
-                          "--cpu", "--render", "x.png"])
+    # --render: the JAX tool's render_scene_tracks of its own result, pixel
+    # for pixel
+    jpng = tree["tmp"] / "cli" / "jax_tracks.png"
+    jrender_scene_tracks(jax_result["results"], str(jpng))
+    with Image.open(png) as a, Image.open(jpng) as b:
+        got, want = np.asarray(a.convert("RGBA")), np.asarray(b.convert("RGBA"))
+    assert got.shape == want.shape and np.array_equal(got, want)
+    assert len(np.unique(got.reshape(-1, 4), axis=0)) > 2
 
 
 def test_run_multiclass_matches_jax(tree):

@@ -158,10 +158,28 @@ Phases (any failure ends the run with a non-zero exit code):
      PNG's pixels equal render_scene_tracks' on the JSON) and
      tools.visualize_scene over the micro tree (6 files). Without
      matplotlib the two renders print "not run (matplotlib absent)" and the
-     serving runs all the same.
+     serving runs all the same;
+  20. the model zoo, the registry and the profiler (phase_zoo): BEVMap
+     built by register_all + build_from_cfg at configs/nusc/car.py's full
+     width (f32) and loaded strictly from a trunk-only bev_map.pth of
+     random weights; one bench frame (V=120k, no plans) launches 12
+     sorted_lookup + 21 gather_conv and nothing else (counted), the map is
+     (1, 180, 180, 512) and finite, the shared conv on it equals
+     ShastaModel.bev_single of the same weights, the path's lookups and
+     convs hold against their plain versions, and the forward is timed;
+     PillarFeatureNet + point_pillars_scatter at CenterPoint's nuScenes
+     PointPillars widths (30k pillars of 20 points, 512 x 512 canvas),
+     dynamic_voxelize and _virtual over 300k points at the car config's
+     range and voxel (cap 120k, and one case that overflows), DeformConv2d
+     64 -> 64 at 1 x 180 x 180 (modulated and not) and deform_psroi_pooling
+     (128 rois on 2 x 180 x 180 x 490, forward and gradients), each cuda
+     against cpu; a profiler trace of one BEVMap forward holds its span and
+     the gather_conv launches, StageTimer waits for the card and
+     cost_analysis counts a 1024^3 matmul.
 The line before the last is {"kernels": [...]} (launches per main path
-from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16, 17, 18 and 19,
-each counted from 0 just before it; times from phases 3-3d, 8 and 15-18);
+from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16, 17, 18, 19
+and 20, each counted from 0 just before it; times from phases 3-3d, 8, 15-18
+and 20);
 the last is {"ok": true, "device": {...}}. Imports nothing of JAX or of the
 JAX package.
 """
@@ -287,11 +305,11 @@ CONV_GROUPS = ("conv_input", "res0", "down1", "res1", "down2", "res2", "down3", 
 
 
 def phase_gather_kernels(label, run):
-    """Phases 3b-3d and 15-18: the 12 sorted_lookup and 21 gather_conv calls
-    that `run()` makes (one unplanned trunk pass: the 4-lane step, the B=1
-    step without plans, the two-frame forward, a served split's frame, an
-    8-lane eval step, a train step or cache batch, a frame of the chain's
-    tree),
+    """Phases 3b-3d, 15-18 and 20: the 12 sorted_lookup and 21 gather_conv
+    calls that `run()` makes (one unplanned trunk pass: the 4-lane step, the
+    B=1 step without plans, the two-frame forward, a served split's frame,
+    an 8-lane eval step, a train step or cache batch, a frame of the chain's
+    tree, BEVMap's frame),
     each against its plain version on its own arguments (a conv also on
     seeded f32 and bf16 features at its gather table), a second bf16 run
     (the same bits) and the times (per path: the sum over its calls)."""
@@ -2104,6 +2122,294 @@ def phase_waymo(kernels, smi):
         seconds=seconds_phase)
 
 
+ZOO_LABEL = "BEVMap frame"
+# CenterPoint's nuScenes PointPillars widths (nusc_centerpoint_pp_02voxel_two_pfn_10sweep.py)
+PILLARS = dict(num_filters=(64, 64), num_input_features=5, voxel_size=(0.2, 0.2),
+               pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0))
+PILLAR_POINTS, PILLAR_MAX, PILLAR_GRID = 20, 30000, 512
+DV_POINTS, DV_MAX = 300000, 120000
+PSROI = dict(spatial_scale=0.125, output_dim=10, group_size=7, pooled_size=7,
+             sample_per_part=4)
+
+
+def max_err(got, want, atol, rtol, label):
+    """Max abs error of got (the card) against want (the CPU); fails where
+    |got - want| > atol + rtol |want| anywhere."""
+    import torch
+
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    check(got.shape == want.shape, f"{label}: shapes {tuple(got.shape)} and {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{label}: not finite on the card")
+    bad = float(((got - want).abs() - rtol * want.abs()).max()) if got.numel() else 0.0
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(bad <= atol, f"{label}: cuda against cpu max abs err {err} (atol {atol}, rtol {rtol})")
+    return err
+
+
+def phase_zoo(kernels, smi):
+    """Phase 20: the model zoo. BEVMap through register_all + build_from_cfg
+    at configs/nusc/car.py's full width (f32, caps 100k/50k/25k/25k) from a
+    trunk-only bev_map.pth (a random numpy tree through load_jax_variables,
+    save_checkpoint, load_checkpoint, a strict load): one bench frame
+    (V=120k, no plans) launches 12 sorted_lookup + 21 gather_conv and
+    nothing else, the (1, 180, 180, 512) map is finite, the same tree's
+    shared conv on it equals ShastaModel.bev_single, the path's lookups and
+    convs hold against their plain versions (phase_gather_kernels), and its
+    forward is timed. Then, cuda against cpu on the same weights and inputs:
+    PillarFeatureNet + point_pillars_scatter at CenterPoint's nuScenes
+    PointPillars widths (eval, 1e-5; the canvas exact), dynamic_voxelize and
+    _virtual over 300k points at the car config's range and voxel (coords
+    and valid exact, means 1e-5; one case overflows), DeformConv2d 64 -> 64
+    at 1 x 180 x 180, modulated and not (1e-4), deform_psroi_pooling forward
+    and its gradients with and without trans (1e-5, counts exact); and the
+    profiler: a trace of one BEVMap forward holds its annotate span and a
+    gather_conv launch, StageTimer waits for the card, cost_analysis counts
+    a 1024^3 matmul. Returns (launches, the path's kernel records, numbers)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from shasta_tpu_torch.convert import load_jax_variables, random_jax_variables
+    from shasta_tpu_torch.data.synthetic import make_batch
+    from shasta_tpu_torch.models import (BEVMap, ShastaModel, dynamic_voxelize,
+                                         dynamic_voxelize_virtual)
+    from shasta_tpu_torch.models.bevmap import VOXEL_KEYS
+    from shasta_tpu_torch.models.pillars import PillarFeatureNet, point_pillars_scatter
+    from shasta_tpu_torch.ops.dcn import DeformConv2d, deform_psroi_pooling
+    from shasta_tpu_torch.registry_setup import register_all
+    from shasta_tpu_torch.timing import median_ms
+    from shasta_tpu_torch.tools.common import JAX_ONLY_KEYS, model_config
+    from shasta_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from shasta_tpu_torch.utils import Config, build_from_cfg
+    from shasta_tpu_torch.utils.profiler import StageTimer, annotate, cost_analysis, trace
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "work_dirs", "chip_smoke_zoo")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    nums = {}
+
+    # BEVMap at the car config's full width from a trunk-only bev_map.pth
+    car = Config.fromfile(os.path.join(repo, "configs", "nusc", "car.py"))
+    served = ShastaModel(model_config(car), device="cuda")
+    tree = random_jax_variables(served, seed=20)
+    load_jax_variables(served, tree)
+    host = BEVMap(model_config(car), device="cpu")
+    load_jax_variables(host, tree)
+    pth = os.path.join(root, "bev_map.pth")
+    save_checkpoint(pth, host.state_dict())
+    sd = load_checkpoint(pth)
+    check({k.split(".")[0] for k in sd} == {"backbone", "neck"},
+          f"bev_map.pth gives back {sorted({k.split('.')[0] for k in sd})}")
+    regs = register_all()
+    bev = build_from_cfg(dict({k: v for k, v in car.model.items() if k not in JAX_ONLY_KEYS},
+                              type="BEVMap"), regs["models"])
+    check(bev.device.type == "cuda" and bev.cfg.cap_conv2 == 100000 and bev.cfg.dtype is None,
+          f"BEVMap built on {bev.device} with {bev.cfg}")
+    bev.load_state_dict(sd, strict=True)
+    batch = make_batch(bev.cfg, num_voxels_cap=120000, n_dets=60, seed=0)
+    frame = {k: torch.from_numpy(batch[k]).cuda() for k in VOXEL_KEYS}
+    with torch.no_grad():
+        bev(frame)  # warm-up
+        bmap, launches = counted(kernels, lambda: bev(frame))
+        want = {k.__name__: 0 for k in kernels}
+        want.update(sorted_lookup=12, gather_conv=21)
+        check(launches == want, f"BEVMap: expected 12 sorted_lookup + 21 gather_conv, got "
+                                f"{launches}")
+        check(tuple(bmap.shape) == (1, 180, 180, 512) and bool(torch.isfinite(bmap).all()),
+              f"BEVMap: map {tuple(bmap.shape)}, not finite or not (1, 180, 180, 512)")
+        mine = served.shared_conv(bmap.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        want_bev = served.bev_single(frame)
+        diff = float((mine - want_bev).abs().max())
+        check(diff <= 1e-5, f"BEVMap + shared conv differs from bev_single by {diff}")
+        nums["bevmap_vs_bev_single_max_abs"] = diff
+        nums["bevmap_vs_bev_single_bit_equal"] = bool(torch.equal(mine, want_bev))
+        nums["bevmap_ms"] = median_ms(lambda: bev(frame))
+    print(f"phase 20: BEVMap (register_all + build_from_cfg, car config, f32) from a "
+          f"trunk-only bev_map.pth ({len(sd)} tensors, strict); one bench frame "
+          f"({int(batch['voxels_valid'].sum())} voxels): launches {launches}, map "
+          f"{tuple(bmap.shape)}; shared conv on it vs bev_single max abs {diff:.3g} (bit-equal "
+          f"{nums['bevmap_vs_bev_single_bit_equal']}); forward {nums['bevmap_ms']:.3f} ms "
+          f"({smi})")
+    gather = phase_gather_kernels(ZOO_LABEL, lambda: bev(frame))
+
+    rng = np.random.default_rng(20)
+    # PointPillars: 30k pillars on distinct cells of the 512 x 512 canvas
+    cells = rng.choice(PILLAR_GRID * PILLAR_GRID, PILLAR_MAX, replace=False)
+    cy, cx = cells // PILLAR_GRID, cells % PILLAR_GRID
+    npts = rng.integers(1, PILLAR_POINTS + 1, PILLAR_MAX).astype(np.int32)
+    P = PILLAR_POINTS
+    vox = np.zeros((PILLAR_MAX, P, 5), np.float32)
+    vox[:, :, 0] = (cx[:, None] + rng.uniform(0, 1, (PILLAR_MAX, P))) * 0.2 - 51.2
+    vox[:, :, 1] = (cy[:, None] + rng.uniform(0, 1, (PILLAR_MAX, P))) * 0.2 - 51.2
+    vox[:, :, 2] = rng.uniform(-5, 3, (PILLAR_MAX, P))
+    vox[:, :, 3:] = rng.uniform(0, 1, (PILLAR_MAX, P, 2))
+    vox[np.arange(P)[None, :] >= npts[:, None]] = 0.0
+    coords3 = np.stack([np.zeros_like(cy), cy, cx], 1).astype(np.int32)
+    coords4 = np.concatenate([np.zeros((PILLAR_MAX, 1), np.int32), coords3], 1)
+    valid = rng.random(PILLAR_MAX) > 0.05
+    outs = {}
+    for d in ("cuda", "cpu"):
+        pfn = PillarFeatureNet(**PILLARS, device=d).eval()
+        load_jax_variables(pfn, random_jax_variables(pfn, seed=21))
+        args = [torch.from_numpy(a).to(d) for a in (vox, npts, coords3)]
+        c4, ok = torch.from_numpy(coords4).to(d), torch.from_numpy(valid).to(d)
+
+        def pillars():
+            feats = pfn(*args)
+            return feats, point_pillars_scatter(feats, c4, ok, 1, PILLAR_GRID, PILLAR_GRID)
+        with torch.no_grad():
+            outs[d] = pillars()
+            if d == "cuda":
+                nums["pillars_ms"] = median_ms(pillars)
+    nums["pillars_max_abs"] = max_err(outs["cuda"][0], outs["cpu"][0], 1e-5, 1e-5,
+                                      "PillarFeatureNet")
+    check(torch.equal(outs["cuda"][1].cpu(), point_pillars_scatter(
+        outs["cuda"][0].cpu(), torch.from_numpy(coords4), torch.from_numpy(valid), 1,
+        PILLAR_GRID, PILLAR_GRID)), "point_pillars_scatter: the card's canvas differs")
+    check(tuple(outs["cuda"][1].shape) == (1, PILLAR_GRID, PILLAR_GRID, 64)
+          and int((outs["cuda"][1].abs().sum(-1) > 0).sum()) <= int(valid.sum()),
+          "point_pillars_scatter: canvas shape or filled cells")
+    print(f"phase 20: PillarFeatureNet (64, 64) + point_pillars_scatter over {PILLAR_MAX} "
+          f"pillars x {P} points -> 1 x 512 x 512 x 64: cuda vs cpu max abs "
+          f"{nums['pillars_max_abs']:.3g}, canvas exact; {nums['pillars_ms']:.3f} ms on the card")
+
+    # dynamic voxels: 300k points around 30k spots of the car range (under the cap)
+    cr, vs = (-54.0, -54.0, -5.0, 54.0, 54.0, 3.0), (0.075, 0.075, 0.2)
+    centers = rng.uniform([-54, -54, -5], [54, 54, 3], size=(30000, 3))
+    xyz = centers[rng.integers(0, len(centers), DV_POINTS)] + rng.normal(0, 0.02, (DV_POINTS, 3))
+    dv = {}
+    for C, fn, name in ((5, dynamic_voxelize, "plain"), (16, dynamic_voxelize_virtual, "virtual")):
+        pts = np.concatenate([xyz, rng.uniform(0, 1, (DV_POINTS, C - 3))], 1).astype(np.float32)
+        if name == "virtual":
+            pts[:, -2] = rng.choice([1.0, 0.0, -1.0], DV_POINTS)
+        ok = np.ones(DV_POINTS, bool)
+        ok[-1000:] = False
+        for cap in (DV_MAX, None):
+            res = {}
+            for d in ("cuda", "cpu"):
+                tp, tv = torch.from_numpy(pts).to(d), torch.from_numpy(ok).to(d)
+                res[d] = fn(tp, tv, cr, vs, cap or dv["unique"] // 2)
+            n = int(res["cpu"][2].sum())
+            if cap:
+                dv.setdefault("unique", n)
+                check(n < DV_MAX, f"dynamic voxels: {n} voxels reach the cap {DV_MAX}")
+            else:
+                check(n == dv["unique"] // 2, f"dynamic voxels overflow: {n} slots")
+            label = f"dynamic_voxelize {name} cap {cap or 'half'}"
+            check(torch.equal(res["cuda"][1].cpu(), res["cpu"][1])
+                  and torch.equal(res["cuda"][2].cpu(), res["cpu"][2]),
+                  f"{label}: coords or valid differ on cuda and cpu")
+            dv[label] = max_err(res["cuda"][0], res["cpu"][0], 1e-5, 1e-5, label)
+        tp, tv = torch.from_numpy(pts).cuda(), torch.from_numpy(ok).cuda()
+        dv[f"{name}_ms"] = median_ms(lambda: fn(tp, tv, cr, vs, DV_MAX))
+    nums["dynamic_voxels"] = dv
+    print(f"phase 20: dynamic voxels over {DV_POINTS} points ({dv['unique']} voxels of the "
+          f"0.075 x 0.075 x 0.2 grid, cap {DV_MAX}; overflow at {dv['unique'] // 2}): coords "
+          f"and valid exact, means max abs {max(v for k, v in dv.items() if 'cap' in k):.3g}; "
+          f"{dv['plain_ms']:.3f} / {dv['virtual_ms']:.3f} ms (plain / virtual) on the card")
+
+    # DCN at the neck's output widths
+    x = rng.normal(size=(1, 180, 180, 64)).astype(np.float32)
+    for modulated in (False, True):
+        res = {}
+        for d in ("cuda", "cpu"):
+            m = DeformConv2d(64, 64, modulated=modulated, device=d)
+            load_jax_variables(m, random_jax_variables(m, seed=22))
+            with torch.no_grad():
+                res[d] = m(torch.from_numpy(x).to(d))
+                if d == "cuda":
+                    tx = torch.from_numpy(x).cuda()
+                    nums[f"dcn_{'v2' if modulated else 'v1'}_ms"] = median_ms(lambda: m(tx))
+        nums[f"dcn_{'v2' if modulated else 'v1'}_max_abs"] = max_err(
+            res["cuda"], res["cpu"], 1e-4, 1e-4, f"DeformConv2d modulated={modulated}")
+    print(f"phase 20: DeformConv2d 64 -> 64 at 1 x 180 x 180: cuda vs cpu max abs "
+          f"{nums['dcn_v1_max_abs']:.3g} (v1) / {nums['dcn_v2_max_abs']:.3g} (v2); "
+          f"{nums['dcn_v1_ms']:.3f} / {nums['dcn_v2_ms']:.3f} ms on the card")
+
+    # deformable PS-RoI pooling: 128 rois on a 2 x 180 x 180 x 490 map
+    D, G = PSROI["output_dim"], PSROI["group_size"]
+    data = rng.normal(size=(2, 180, 180, D * G * G)).astype(np.float32)
+    xy = rng.uniform(0, 1400, (128, 2))
+    wh = rng.uniform(16, 400, (128, 2))
+    rois = np.concatenate([rng.integers(0, 2, (128, 1)), xy, xy + wh], 1).astype(np.float32)
+    trans = rng.normal(size=(128, 2, 7, 7)).astype(np.float32)
+    for with_trans in (False, True):
+        kw = dict(PSROI, trans_std=0.1 if with_trans else 0.0)
+        res = {}
+        for d in ("cuda", "cpu"):
+            td = torch.from_numpy(data).to(d).requires_grad_()
+            tt = torch.from_numpy(trans).to(d).requires_grad_() if with_trans else None
+            out, cnt = deform_psroi_pooling(td, torch.from_numpy(rois).to(d), tt, **kw)
+            (out ** 2).sum().backward()
+            res[d] = out, cnt, td.grad, None if tt is None else tt.grad
+        tag = "trans" if with_trans else "no trans"
+        check(torch.equal(res["cuda"][1].cpu(), res["cpu"][1]),
+              f"deform_psroi_pooling {tag}: counts differ on cuda and cpu")
+        nums[f"psroi_{tag}_max_abs"] = max(
+            max_err(res["cuda"][i], res["cpu"][i], 1e-5, 1e-5,
+                    f"deform_psroi_pooling {tag} {what}")
+            for i, what in ((0, "out"), (2, "grad data"), (3, "grad trans"))
+            if res["cpu"][i] is not None)
+        td = torch.from_numpy(data).cuda()
+        tt = torch.from_numpy(trans).cuda() if with_trans else None
+        tr = torch.from_numpy(rois).cuda()
+        with torch.no_grad():
+            nums[f"psroi_{tag}_ms"] = median_ms(lambda: deform_psroi_pooling(td, tr, tt, **kw))
+    print(f"phase 20: deform_psroi_pooling, 128 rois on 2 x 180 x 180 x 490, pooled 7, 4 "
+          f"samples: forward and grads cuda vs cpu max abs {nums['psroi_no trans_max_abs']:.3g}"
+          f" / {nums['psroi_trans_max_abs']:.3g} (without / with trans), counts exact; "
+          f"forward {nums['psroi_no trans_ms']:.3f} / {nums['psroi_trans_ms']:.3f} ms on the card")
+
+    # the profiler around one BEVMap forward
+    prof_dir = os.path.join(root, "trace")
+    with torch.no_grad(), trace(prof_dir) as prof:
+        t0 = time.perf_counter()
+        with annotate("zoo.bevmap"):
+            bev(frame)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    top = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                  if e.device_type == cuda and not e.is_user_annotation
+                  and e.self_device_time_total > 0), reverse=True)
+    busy = sum(t[0] for t in top)
+    print(f"phase 20: one profiled BEVMap forward: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"over {sum(t[1] for t in top)} kernels; device ms, launches, kernel:")
+    for ms, count, key in top[:6]:
+        print(f"    {ms:9.3f} {count:7d}  {key[:100]}")
+    files = [os.path.join(r, f) for r, _, fs in os.walk(prof_dir) for f in fs]
+    check(len(files) == 1, f"trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sum(e.get("name") == "zoo.bevmap" for e in events)
+    gconv = sum(e.get("cat") == "kernel" and "gather_conv" in e.get("name", "")
+                for e in events)
+    check(spans >= 1 and gconv >= 21, f"the trace holds {spans} zoo.bevmap spans and {gconv} "
+                                      f"gather_conv kernels")
+    timer = StageTimer()
+    big = torch.ones(4096, 4096, device="cuda")
+    with timer.stage("matmul", block_on=big):
+        big = big @ big
+    ms_timer = timer.summary()["matmul"]["mean_ms"]
+    a = torch.randn(1024, 1024, device="cuda")
+    flops = cost_analysis(lambda u, v: u @ v, a, a)["flops"]
+    check(flops >= 2 * 1024**3, f"cost_analysis of a 1024^3 matmul: {flops} FLOPs")
+    nums.update(profiled_wall_ms=wall, device_busy_ms=busy,
+                top_kernels=[{"ms": ms, "launches": c, "name": k} for ms, c, k in top[:6]],
+                trace_events=len(events), trace_gather_conv_kernels=gconv,
+                stage_timer_matmul_ms=ms_timer, cost_analysis_flops=flops)
+    print(f"phase 20: profiler: a trace of {len(events)} events with the zoo.bevmap span and "
+          f"{gconv} gather_conv kernels; StageTimer around a 4096^3 matmul {ms_timer:.3f} ms "
+          f"(host clock, waited for the card); cost_analysis of a 1024^3 matmul {flops} FLOPs")
+    nums["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 20: {nums['seconds']:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, gather, nums
+
+
 def bound_of(rec) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") of a kernel record's counted
     bytes and operations on the H100 (shasta_tpu_torch.timing)."""
@@ -2380,6 +2686,9 @@ def main() -> int:
     # 19. the Waymo readers, the Waymo oracle and the renderers
     path_launches["19: track_scene --render"], waymo = phase_waymo(kernels, smi)
 
+    # 20. the model zoo, the registry and the profiler
+    path_launches[f"20: {ZOO_LABEL}"], gather_paths[ZOO_LABEL], zoo = phase_zoo(kernels, smi)
+
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
                              "shasta_tpu/ops/pallas/block_conv.py:117", "B=1 frame with plans"),
            "keyed_conv": ("shasta_tpu_torch/csrc/window_conv.cu",
@@ -2435,7 +2744,7 @@ def main() -> int:
                       "classes7_frames_per_s": fps7, "classes7_frames_per_s_runs": fps7_runs,
                       "classes7_peak_device_gib": peak_gb, "serving": serving,
                       "eval_flow": eval_flow, "training": training, "chain": chain,
-                      "waymo": waymo,
+                      "waymo": waymo, "zoo": zoo,
                       "card": smi, "host": host,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out_kernels}))

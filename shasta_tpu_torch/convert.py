@@ -11,6 +11,10 @@ the deconv tap flip (convert.py:70-75).
     load_jax_variables(model, variables_np)
     random_jax_variables(model, seed)  # a seeded random tree of that layout
     class_models_from_jax(cfgs, trees, trunk_key)  # the multi-class step's models
+
+The model is a ShastaModel, a BEVMap (its backbone and neck), a
+PillarFeatureNet (pfn_{i} Dense and bn_{i}) or a DeformConv2d
+(offset_conv, kernel (K*C, F) and bias).
 """
 from __future__ import annotations
 
@@ -19,7 +23,12 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from torch import nn
+
+from .models.bevmap import BEVMap
+from .models.pillars import PillarFeatureNet
 from .models.shasta import ShastaModel
+from .ops.dcn import DeformConv2d
 
 # (port key, path in the JAX tree, port-from-jax, jax-from-port)
 Entry = tuple[str, tuple, Callable, Callable]
@@ -70,7 +79,8 @@ def _linear(port: str, path: tuple) -> Iterator[Entry]:
     yield f"{port}.bias", ("params", *path, "bias"), _ident, _ident
 
 
-def _entries(model: ShastaModel) -> Iterator[Entry]:
+def _trunk_entries(model: ShastaModel | BEVMap) -> Iterator[Entry]:
+    """The backbone and the neck."""
     s3 = _sparse((3, 3, 3))
     bb = ("backbone",)
     yield ("backbone.conv_input.0.weight", ("params", *bb, "conv_input_kernel"), *s3)
@@ -115,6 +125,9 @@ def _entries(model: ShastaModel) -> Iterator[Entry]:
                    _conv_to_port, _conv_to_jax)
         yield from _bn(f"neck.deblocks.{i}.1", (*dpath, "bn"), (*dpath, "bn"))
 
+
+def _shasta_entries(model: ShastaModel) -> Iterator[Entry]:
+    yield from _trunk_entries(model)
     sc = ("shared_conv",)
     yield ("shared_conv.0.weight", ("params", *sc, "conv", "kernel"), _conv_to_port, _conv_to_jax)
     yield "shared_conv.0.bias", ("params", *sc, "conv", "bias"), _ident, _ident
@@ -136,15 +149,38 @@ def _entries(model: ShastaModel) -> Iterator[Entry]:
         yield from _linear(f"aff.{t}", (*af, "aff", f"layers_{li}"))
 
 
+def _pillar_entries(model: PillarFeatureNet) -> Iterator[Entry]:
+    for i in range(len(model.num_filters)):
+        yield f"pfn_{i}.weight", ("params", f"pfn_{i}", "kernel"), _lin_t, _lin_t
+        yield from _bn(f"bn_{i}", (f"bn_{i}",), (f"bn_{i}",))
+
+
+def _dcn_entries(model: DeformConv2d) -> Iterator[Entry]:
+    yield ("offset_conv.weight", ("params", "offset_conv", "kernel"), _conv_to_port,
+           _conv_to_jax)
+    yield "offset_conv.bias", ("params", "offset_conv", "bias"), _ident, _ident
+    yield "kernel", ("params", "kernel"), _ident, _ident  # (K*C, F) in both
+    yield "bias", ("params", "bias"), _ident, _ident
+
+
+def _entries(model: nn.Module) -> Iterator[Entry]:
+    for cls, entries in ((ShastaModel, _shasta_entries), (BEVMap, _trunk_entries),
+                         (PillarFeatureNet, _pillar_entries), (DeformConv2d, _dcn_entries)):
+        if isinstance(model, cls):
+            return entries(model)
+    raise TypeError(f"no JAX layout for {type(model).__name__}")
+
+
 def _get(tree, path):
     for p in path:
         tree = tree[p]
     return tree
 
 
-def load_jax_variables(model: ShastaModel, variables_np) -> None:
-    """Load a JAX ShastaModel variable tree (numpy leaves) into `model`,
-    strictly: every port parameter and running statistic gets a value."""
+def load_jax_variables(model: nn.Module, variables_np) -> None:
+    """Load a JAX variable tree (numpy leaves) of the model's JAX
+    counterpart into `model`, strictly: every port parameter and running
+    statistic gets a value."""
     sd = model.state_dict()
     new = {}
     for key, path, to_port, _ in _entries(model):
@@ -162,7 +198,7 @@ def load_jax_variables(model: ShastaModel, variables_np) -> None:
     model.load_state_dict(new, strict=True)
 
 
-def random_jax_variables(model: ShastaModel, seed: int = 0) -> dict:
+def random_jax_variables(model: nn.Module, seed: int = 0) -> dict:
     """A seeded random variable tree in the JAX layout, sized for `model`:
     weights ~ N(0, 1/fan_in), BN scale ~ N(1, 0.1), bias and mean ~
     N(0, 0.1), var ~ U(0.5, 2). Made with numpy only."""
@@ -181,6 +217,8 @@ def random_jax_variables(model: ShastaModel, seed: int = 0) -> dict:
             if "backbone" in key:  # (kz, ky, kx, in, out)
                 fan_in = int(np.prod(shape[:-1]))
             elif to_jax is _deconv_to_jax:  # (in, out, 2, 2), stride 2: one tap each
+                fan_in = shape[0]
+            elif key == "kernel":  # DeformConv2d's (K*C, F)
                 fan_in = shape[0]
             else:  # Linear (out, in), Conv2d (out, in, kh, kw)
                 fan_in = int(np.prod(shape[1:]))

@@ -168,10 +168,17 @@ def trunk_bev(cfg: ShastaConfig, backbone: SparseBackbone, neck: RPN,
     (B, V), all tensors on the trunk's device; optionally, at B=1, the
     plan_* arrays of shasta_tpu_torch/plans.py (without them every index
     is built on the device). Row b*V + v carries batch index b."""
+    return _trunk_from_sparse(backbone, neck, shared_conv, *frame_sparse(cfg, frame))
+
+
+def frame_sparse(cfg: ShastaConfig, frame: dict) -> tuple[sp.SparseTensor, dict | None]:
+    """The sparse tensor of `trunk_bev`'s frame dict (row b*V + v carries
+    batch index b) and its host plans (the plan_* arrays without their
+    prefix, B=1 only), or None."""
     B = frame["voxels"].shape[0]
     plans = {k[5:]: v for k, v in frame.items() if k.startswith("plan_")}
     assert B == 1 or not plans, "host plans serve the B=1 step"
     st = sp.SparseTensor(*_voxel_rows(cfg, frame["voxels"], frame["num_points"],
                                       frame["coordinates"], frame["voxels_valid"]),
                          tuple(cfg.grid_shape), B)
-    return _trunk_from_sparse(backbone, neck, shared_conv, st, plans or None)
+    return st, plans or None

@@ -195,3 +195,22 @@ def step_frames_core(table: TrackTable, id_count: torch.Tensor, dets: FrameDets,
         used=build(det_used, survive),
     )
     return new_table, n_new, det_tid, det_used, det_refsc, is_new
+
+
+def track_scene(frames: FrameDets, time_lags: torch.Tensor, params: TrackerParams,
+                cap: int | None = None):
+    """Track a whole scene: `step_frame` over its frames in order, from an
+    empty table of `cap` slots (default N*(max_age+1)) and id count 0 (the
+    JAX lax.scan, scan_tracker.py:203-220). frames: FrameDets with a
+    leading (F,) axis; time_lags (F,). Returns (det_tid (F, N), det_used
+    (F, N), ref (F, N))."""
+    F, N = frames.ct.shape[:2]
+    table = TrackTable.empty(cap or N * (params.max_age + 1), frames.ct.device)
+    id_count = torch.zeros((), dtype=torch.int32, device=frames.ct.device)
+    time_lags = torch.as_tensor(time_lags, device=frames.ct.device)
+    outs = []
+    for f in range(F):
+        table, id_count, tid, used, ref = step_frame(
+            table, id_count, FrameDets(*(d[f] for d in frames)), time_lags[f], params)
+        outs.append((tid, used, ref))
+    return tuple(torch.stack(o) for o in zip(*outs))

@@ -12,7 +12,9 @@ layout (kz, ky, kx, in, out), as the JAX converter accepts both
 Two files load: the full Shasta checkpoint, and the trunk-only
 `bev_map.pth` (reader, backbone and neck), which fills backbone and neck.
 They are told apart by their top-level names, as the JAX loader does.
-Orbax directories (the JAX package's own checkpoints) cannot be read here.
+Orbax directories (the JAX package's own checkpoints) cannot be read here:
+tools/orbax_to_pth.py, run where the JAX package and orbax are installed,
+converts one into a .pth.
 
     save_checkpoint(path, model.state_dict())
     model.load_state_dict(merge_pretrained(model.state_dict(), load_checkpoint(path)))
@@ -52,7 +54,9 @@ def load_checkpoint(path: str) -> dict:
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory: orbax checkpoints of the JAX package cannot be "
-            "read by the port; give a .pth (det3d's, or one save_checkpoint wrote)")
+            "read by the port; convert it with `python tools/orbax_to_pth.py "
+            f"--checkpoint {path} --out <file.pth>` where jax and orbax are installed, "
+            "or give a .pth (det3d's, or one save_checkpoint wrote)")
     if not path.endswith((".pth", ".pt")):
         raise ValueError(f"{path}: the port loads .pth/.pt checkpoints only")
     sd = torch.load(path, map_location="cpu", weights_only=False)

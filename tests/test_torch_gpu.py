@@ -472,3 +472,115 @@ def test_waymo_tracking_on_the_card(tmp_path):
         summaries[dev] = eval_waymo_tracking(out, {seg: frames})
     assert ids["cuda"] == ids["cpu"] and sum(map(len, ids["cpu"])) > 0
     assert summaries["cuda"] == summaries["cpu"]
+
+
+ZOO_SMALL = dict(max_obj=10, grid_shape=(41, 80, 80), pc_start=(-3.0, -3.0),
+                 cap_conv2=2000, cap_conv3=1000, cap_conv4=500, cap_extra=500)
+
+
+@pytest.mark.gpu
+def test_bevmap_kernels_match_its_plain_route_on_the_card():
+    """BEVMap at a small config on the card (12 sorted_lookup + 21
+    gather_conv launches, f32, TF32 off) against the same weights on the
+    CPU, where the kernels' plain versions run: 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from shasta_tpu_torch.convert import load_jax_variables, random_jax_variables
+    from shasta_tpu_torch.data.synthetic import make_batch
+    from shasta_tpu_torch.models import BEVMap, ShastaConfig
+    from shasta_tpu_torch.ops.kernels.gather_conv import gather_conv
+    from shasta_tpu_torch.ops.kernels.lookup import sorted_lookup
+
+    cfg = ShastaConfig(**ZOO_SMALL)
+    frame = {k: v for k, v in make_batch(cfg, num_voxels_cap=3000, n_dets=4, seed=1).items()
+             if k in ("voxels", "num_points", "coordinates", "voxels_valid")}
+    maps = {}
+    for dev in ("cuda", "cpu"):
+        bev = BEVMap(cfg, device=dev)
+        load_jax_variables(bev, random_jax_variables(bev, seed=3))
+        torch.cuda.synchronize()
+        before = sorted_lookup.launches, gather_conv.launches
+        with torch.no_grad():
+            maps[dev] = bev(frame).cpu()
+        launched = sorted_lookup.launches - before[0], gather_conv.launches - before[1]
+        assert launched == ((12, 21) if dev == "cuda" else (0, 0)), (dev, launched)
+    assert maps["cpu"].abs().max() > 0
+    torch.testing.assert_close(maps["cuda"], maps["cpu"], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_zoo_modules_cuda_equal_cpu():
+    """PillarFeatureNet + point_pillars_scatter (1e-5, the canvas exact),
+    dynamic_voxelize and _virtual (coords and valid exact, means 1e-5, one
+    overflowing cap), DeformConv2d modulated and not (1e-4) and
+    deform_psroi_pooling with its gradients (1e-5, counts exact): the
+    same weights and inputs on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from shasta_tpu_torch.convert import load_jax_variables, random_jax_variables
+    from shasta_tpu_torch.models import dynamic_voxelize, dynamic_voxelize_virtual
+    from shasta_tpu_torch.models.pillars import PillarFeatureNet, point_pillars_scatter
+    from shasta_tpu_torch.ops.dcn import DeformConv2d, deform_psroi_pooling
+
+    resolve_device("cuda")  # TF32 off
+    rng = np.random.default_rng(0)
+    V, P = 500, 12
+    vox = rng.normal(size=(V, P, 5)).astype(np.float32) * 10
+    npts = rng.integers(0, P + 1, V).astype(np.int32)
+    cells = rng.choice(64 * 64, V, replace=False)
+    coords = np.stack([np.zeros(V), np.zeros(V), cells // 64, cells % 64], 1).astype(np.int32)
+    valid = rng.random(V) > 0.1
+    pts = rng.uniform(-2.5, 2.5, (4000, 16)).astype(np.float32)
+    pts[:, -2] = rng.choice([1.0, 0.0, -1.0], len(pts))
+    x = rng.normal(size=(1, 20, 24, 8)).astype(np.float32)
+    data = rng.normal(size=(2, 20, 24, 4 * 9)).astype(np.float32)
+    rois = np.array([[0, 1.2, 2.7, 60.0, 50.0], [1, 0.0, 0.0, 28.0, 16.0],
+                     [0, -90.0, -90.0, -70.0, -70.0], [1, 10.5, 12.5, 40.5, 30.5]], np.float32)
+    trans = rng.normal(size=(4, 2, 3, 3)).astype(np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        def t(a):
+            return torch.from_numpy(a).to(dev)
+        o = outs[dev] = {}
+        pfn = PillarFeatureNet((32, 32), device=dev).eval()
+        load_jax_variables(pfn, random_jax_variables(pfn, seed=1))
+        with torch.no_grad():
+            o["pfn"] = pfn(t(vox), t(npts), t(coords[:, 1:]))
+            o["canvas"] = point_pillars_scatter(o["pfn"], t(coords), t(valid), 1, 64, 64)
+        for fn, c in ((dynamic_voxelize, 5), (dynamic_voxelize_virtual, 16)):
+            for cap in (2000, 40):
+                o[(fn.__name__, cap)] = fn(t(np.ascontiguousarray(pts[:, :c])) if c == 5
+                                           else t(pts), t(np.ones(len(pts), bool)),
+                                           (-2.0, -2.0, -1.0, 2.0, 2.0, 1.0), (0.25, 0.25, 0.25),
+                                           cap)
+        for mod in (False, True):
+            m = DeformConv2d(8, 6, modulated=mod, device=dev)
+            load_jax_variables(m, random_jax_variables(m, seed=2))
+            with torch.no_grad():
+                o[("dcn", mod)] = m(t(x))
+        for tr in (None, trans):
+            td = t(data).requires_grad_()
+            tt = None if tr is None else t(tr).requires_grad_()
+            out, cnt = deform_psroi_pooling(td, t(rois), tt, spatial_scale=0.5, output_dim=4,
+                                            group_size=3, pooled_size=3, sample_per_part=2,
+                                            trans_std=0.0 if tr is None else 0.2)
+            (out ** 2).sum().backward()
+            o[("psroi", tr is None)] = (out, cnt, td.grad) + (() if tt is None else (tt.grad,))
+    g, w = outs["cuda"], outs["cpu"]
+    torch.testing.assert_close(g["pfn"].cpu(), w["pfn"], atol=1e-5, rtol=1e-5)
+    assert torch.equal(g["canvas"].cpu(), point_pillars_scatter(
+        g["pfn"].cpu(), torch.from_numpy(coords), torch.from_numpy(valid), 1, 64, 64))
+    for key in g:
+        if isinstance(key, tuple) and key[0].startswith("dynamic"):
+            (gm, gc, gv), (wm, wc, wv) = g[key], w[key]
+            assert torch.equal(gc.cpu(), wc) and torch.equal(gv.cpu(), wv), key
+            torch.testing.assert_close(gm.cpu(), wm, atol=1e-5, rtol=1e-5)
+        elif isinstance(key, tuple) and key[0] == "dcn":
+            torch.testing.assert_close(g[key].cpu(), w[key], atol=1e-4, rtol=1e-4)
+        elif isinstance(key, tuple) and key[0] == "psroi":
+            assert torch.equal(g[key][1].cpu(), w[key][1])
+            for a, b in zip(g[key][:1] + g[key][2:], w[key][:1] + w[key][2:]):
+                torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-5)
+    assert int(w[("dynamic_voxelize", 40)][2].sum()) == 40  # the small cap overflows

@@ -103,3 +103,27 @@ def test_scan_tracker_matches_over_frames(merged):
             np.testing.assert_allclose(getattr(ttab, name).numpy(),
                                        np.asarray(getattr(jtab, name)), atol=1e-6,
                                        err_msg=name)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_track_scene_matches_jax(seed):
+    """The whole-scene scan on the frames of tests/test_scan_tracker.py:
+    ids and used exact, refined scores to 1e-6; the default cap
+    N*(max_age+1) and (F, N) outputs."""
+    from test_scan_tracker import _params, _random_scene, _stack_frames
+
+    frames_np, _ = _random_scene(np.random.default_rng(seed), F=8, max_real=6)
+    frames = _stack_frames(frames_np, 8)
+    lags = np.full(len(frames_np), 0.5, np.float32)
+    jt, ju, jr = jst.track_scene(frames, jnp.asarray(lags), _params())
+    jp = _params()
+    tp = tst.TrackerParams(*(torch.tensor(np.asarray(v)) for v in jp[:4]), jp.max_age,
+                           jp.merged_mode)
+    tt, tu, tr = tst.track_scene(
+        tst.FrameDets(*(torch.tensor(np.asarray(f)) for f in frames)),
+        torch.from_numpy(lags), tp)
+    assert tt.shape == tu.shape == tr.shape == (8, 8)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-6)
+    assert tu.any() and int(tt.max()) > 1

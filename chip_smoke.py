@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the PyTorch + CUDA port and drive its serving, training and offline paths on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--before CSRC]
 
 Phases (any failure ends the run with a non-zero exit code):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -10,18 +10,20 @@ Phases (any failure ends the run with a non-zero exit code):
   3. hold rulebook_conv and keyed_conv against their plain PyTorch
      versions on the card at the B=1 step's shapes (bench-scale frame:
      120k voxels, stage caps 50k/25k/12k/12k), f32 with TF32 off at atol
-     1e-4 and bf16 at atol/rtol 2e-2, check that a second bf16 run gives
-     the same bits, and time both (every kernel time in this script is
-     shasta_tpu_torch.timing.median_ms: the median of calls each between
-     two CUDA events); per conv, its hits per row and the tensor-core core
-     its bf16 launch takes (warp or staged);
+     1e-4 and bf16 at atol/rtol 2e-2, check that a second run of each
+     dtype gives the same bits, and time the bf16 route, the path's (every
+     kernel time in this script is shasta_tpu_torch.timing.median_ms: the
+     median of calls each between two CUDA events); per conv, its hits per
+     row and the tensor-core core its bf16 launch takes (warp or staged);
   3b. the same for sorted_lookup (all three modes, integer equality) and
      gather_conv at the 4-lane batched step's shapes: the index tables are
      the ones the port builds for the 4-lane frame (480k voxels, caps
      200k/100k/48k/48k); torch.searchsorted is timed beside sorted_lookup,
      with the share of its tasks that search in shared memory, and
-     per mode; per conv group, gather_conv's hits per row, its core and a
-     second bf16 run that must give the same bits;
+     per mode; per conv group, gather_conv's hits per row, its core, a
+     second run of each dtype that must give the same bits, and its time in
+     the path's dtype (bf16 here; f32 on the CLI paths of phases 15-18 and
+     20, where the bf16 core's time on the same tables stands beside it);
   3c, 3d. the same at the shapes of the B=1 frame without plans and of the
      two-frame forward (2 x 120k voxels, phase 13's caps);
   4. drive ScenePipeline.step_frame at the full car width (V=120k,
@@ -176,6 +178,8 @@ Phases (any failure ends the run with a non-zero exit code):
      against cpu; a profiler trace of one BEVMap forward holds its span and
      the gather_conv launches, StageTimer waits for the card and
      cost_analysis counts a 1024^3 matmul.
+With --before CSRC, every f32 path's convs are also timed on gather_conv
+built from that directory (a redesign's parent), in turns with this build.
 The line before the last is {"kernels": [...]} (launches per main path
 from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16, 17, 18, 19
 and 20, each counted from 0 just before it; times from phases 3-3d, 8, 15-18
@@ -234,7 +238,7 @@ def phase_kernels(cfg, frame, plans, dev):
                           lambda i, f, w: window_conv.keyed_conv_plain(*i, f, w))}
     g = torch.Generator(device="cpu").manual_seed(0)
     per_kernel = collections.defaultdict(lambda: dict(ms=0.0, plain_ms=0.0, bytes=0.0,
-                                                      flops=0.0, err=0.0))
+                                                      flops=0.0, err=0.0, dtype="bfloat16"))
     for name, case, n, V, cin, co, idx in b1_conv_cases(cfg, frame, plans, dev):
         kern, plain = fns[name]
         K = idx[-1].shape[1]
@@ -255,9 +259,9 @@ def phase_kernels(cfg, frame, plans, dev):
                   f"rtol {rtol})")
             rec = per_kernel[name]
             rec["err"] = max(rec["err"], err)
-        # main path dtype: bf16 (f, w are bf16 here); no atomics, so a
-        # second run gives the same bits
-        check(torch.equal(kern(idx, f, w), got), f"{name} {case}: two bf16 runs differ")
+            # no atomics: a second run gives the same bits
+            check(torch.equal(kern(idx, f, w), got), f"{name} {case}: two {dt} runs differ")
+        # the main path's dtype: bf16 (f, w are bf16 here)
         ms = median_ms(lambda: kern(idx, f, w))
         plain_ms = median_ms(lambda: plain(idx, f, w))
         isz = 2
@@ -270,7 +274,7 @@ def phase_kernels(cfg, frame, plans, dev):
         rec["bytes"] += n * nbytes
         rec["flops"] += n * 2.0 * hits * cin * co
         print(f"  {name:14s} {case:20s} x{n}  M={M:6d} hits={hits:8d} ({hits / M:.3f}/row)  "
-              f"core {mma_core(K, cin, co)}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"core {mma_core(K, cin, co, f.dtype)}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"(bf16)")
     return per_kernel
 
@@ -311,8 +315,12 @@ def phase_gather_kernels(label, run):
     an 8-lane eval step, a train step or cache batch, a frame of the chain's
     tree, BEVMap's frame),
     each against its plain version on its own arguments (a conv also on
-    seeded f32 and bf16 features at its gather table), a second bf16 run
-    (the same bits) and the times (per path: the sum over its calls)."""
+    seeded f32 and bf16 features at its gather table), a second run of each
+    dtype (the same bits) and the times (per path: the sum over its calls).
+    A conv is timed in the path's own dtype (f32 on every CLI path, bf16 on
+    the steps'); on an f32 path also the bf16 core on the same tables
+    (`bf16_ms`) and, with --before, the f32 route of another build in turns
+    with this one (`before_ms`)."""
     import torch
 
     from shasta_tpu_torch.ops.kernels import gather_conv as gc
@@ -325,10 +333,17 @@ def phase_gather_kernels(label, run):
     lookups, convs = calls["sorted_lookup"], calls["gather_conv"]
     check(len(lookups) == 12 and len(convs) == 21,
           f"{label}: the trunk made {len(lookups)} lookups and {len(convs)} convs")
+    dtypes = {f.dtype for f, _, _ in convs}
+    check(len(dtypes) == 1, f"{label}: the trunk's convs mix {dtypes}")
+    path_dt = dtypes.pop()
     recs = {"sorted_lookup": dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
                                   ops=0.0, err=0.0),
             "gather_conv": dict(ms=0.0, plain_ms=0.0, library_ms=None, bytes=0.0,
-                                flops=0.0, err=0.0)}
+                                flops=0.0, err=0.0, dtype=str(path_dt).split(".")[-1])}
+    if path_dt == torch.float32:
+        recs["gather_conv"]["bf16_ms"] = 0.0
+        if BEFORE_CONV is not None:
+            recs["gather_conv"]["before_ms"] = 0.0
     rec = recs["sorted_lookup"]
     by_mode = collections.defaultdict(lambda: [0.0, 0.0])
     for keys, perm, q, mode in lookups:
@@ -379,8 +394,9 @@ def phase_gather_kernels(label, run):
             own_err = max(own_err, own)
         f32 = torch.randn(V, cin, generator=g).to(idx.device)
         w32 = (torch.randn(K, cin, co, generator=g) / (K * cin) ** 0.5).to(idx.device)
+        seeded = {}
         for dt, atol, rtol in ((torch.float32, 1e-4, 0.0), (torch.bfloat16, 2e-2, 2e-2)):
-            f, w = f32.to(dt), w32.to(dt)
+            f, w = seeded[dt] = f32.to(dt), w32.to(dt)
             got, want = gc.gather_conv(f, idx, w), gc.gather_conv_plain(f, idx, w)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -388,24 +404,63 @@ def phase_gather_kernels(label, run):
             check(bad <= atol, f"{label}: gather_conv {group} {cin}->{co} M={M} {dt}: "
                                f"max abs err {err}")
             rec["err"] = max(rec["err"], err)
-        # f, w are bf16 here: a second run gives the same bits (no atomics)
-        check(torch.equal(gc.gather_conv(f, idx, w), got),
-              f"{label}: gather_conv {group}: two bf16 runs differ")
-        ms = median_ms(lambda: gc.gather_conv(f, idx, w))
+            # no atomics: a second run gives the same bits
+            check(torch.equal(gc.gather_conv(f, idx, w), got),
+                  f"{label}: gather_conv {group}: two {dt} runs differ")
+        f, w = seeded[path_dt]
+        kern = lambda: gc.gather_conv(f, idx, w)  # noqa: E731
+        extra = ""
+        if "before_ms" in rec:  # this build and the other in turns: other, this, this, other
+            before = lambda: BEFORE_CONV(f, idx, w)  # noqa: E731
+            want = gc.gather_conv_plain(f, idx, w)
+            err = float((before() - want).abs().max())
+            check(err <= 1e-4 * max(1.0, float(want.abs().max())),
+                  f"{label}: --before gather_conv {group}: max abs err {err}")
+            turns = [median_ms(fn) for fn in (before, kern, kern, before)]
+            ms, before_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            rec["before_ms"] += n * before_ms
+            extra += f"  --before {before_ms:.4f} ms"
+        else:
+            ms = median_ms(kern)
         plain_ms = median_ms(lambda: gc.gather_conv_plain(f, idx, w))
+        if "bf16_ms" in rec:
+            fb, wb = seeded[torch.bfloat16]
+            bf16_ms = median_ms(lambda: gc.gather_conv(fb, idx, wb))
+            rec["bf16_ms"] += n * bf16_ms
+            extra += f"  bf16 core {bf16_ms:.4f} ms"
         hits = int(((idx >= 0) & (idx < V)).sum())
+        isz = f.element_size()
         rec["ms"] += n * ms
         rec["plain_ms"] += n * plain_ms
-        rec["bytes"] += n * (V * cin * 2 + M * K * 4 + K * cin * co * 2 + M * co * 4)
+        rec["bytes"] += n * (V * cin * isz + M * K * 4 + K * cin * co * isz + M * co * 4)
         rec["flops"] += n * 2.0 * hits * cin * co
         print(f"  gather_conv    {group:10s} {cin:3d}->{co:3d} K={K:2d} x{n}  V={V:7d} "
-              f"M={M:7d} hits={hits:9d} ({hits / M:.3f}/row)  core {gc.mma_core(K, cin, co)}  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  (bf16); on the path's "
-              f"{f_path.dtype} inputs max abs err {own_err:.3g}")
+              f"M={M:7d} hits={hits:9d} ({hits / M:.3f}/row)  core "
+              f"{gc.mma_core(K, cin, co, path_dt)}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+              f"  ({rec['dtype']}){extra}; on the path's inputs max abs err {own_err:.3g}")
     for name, r in recs.items():
         print(f"  {label}: {name} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
-              + (f", searchsorted {r['library_ms']:.4f} ms" if r["library_ms"] else ""))
+              + (f", searchsorted {r['library_ms']:.4f} ms" if r["library_ms"] else "")
+              + (f" ({r['dtype']}), bf16 core {r['bf16_ms']:.4f} ms" if "bf16_ms" in r else "")
+              + (f", --before {r['before_ms']:.4f} ms" if "before_ms" in r else ""))
     return recs
+
+
+# gather_conv's f32 route built from another checkout's csrc (--before): the
+# same launch, to time a redesign's parent beside it on the same tables
+BEFORE_CONV = None
+
+
+def load_before_conv(csrc):
+    """gather_conv on the kernels built from `csrc` (another checkout's
+    shasta_tpu_torch/csrc, whose gather_conv_launch has this one's C
+    signature)."""
+    from pathlib import Path
+
+    from shasta_tpu_torch.ops.kernels import build
+    from shasta_tpu_torch.ops.kernels.gather_conv import build_conv
+
+    return build_conv(build.build_variant("gather_conv", "before", src=Path(csrc)))
 
 
 def drive_batched(model, frame, steps):
@@ -2385,7 +2440,8 @@ def phase_zoo(kernels, smi):
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
     spans = sum(e.get("name") == "zoo.bevmap" for e in events)
-    gconv = sum(e.get("cat") == "kernel" and "gather_conv" in e.get("name", "")
+    # gather_conv's device kernels are gather_mma.cuh's cores over its finder
+    gconv = sum(e.get("cat") == "kernel" and "GatherFind" in e.get("name", "")
                 for e in events)
     check(spans >= 1 and gconv >= 21, f"the trace holds {spans} zoo.bevmap spans and {gconv} "
                                       f"gather_conv kernels")
@@ -2412,19 +2468,29 @@ def phase_zoo(kernels, smi):
 
 def bound_of(rec) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") of a kernel record's counted
-    bytes and operations on the H100 (shasta_tpu_torch.timing)."""
-    from shasta_tpu_torch.timing import HBM_BYTES_PER_S, PEAK_OPS_PER_S, ops_ms
+    bytes and operations on the H100 (shasta_tpu_torch.timing): a conv's
+    products at the rate of its record's dtype (bf16 on the tensor cores,
+    f32 as three TF32 passes)."""
+    from shasta_tpu_torch.timing import HBM_BYTES_PER_S, PRODUCT_FLOPS_PER_S, ops_ms
 
     t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
     t_ops = (ops_ms(int32=rec["ops"]) if "ops" in rec
-             else rec["flops"] / PEAK_OPS_PER_S["bfloat16"] * 1e3)
+             else rec["flops"] / PRODUCT_FLOPS_PER_S[rec["dtype"]] * 1e3)
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import numpy as np
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--before", metavar="CSRC",
+                    help="also time gather_conv's f32 route built from this csrc directory "
+                         "(another checkout's shasta_tpu_torch/csrc, such as a redesign's "
+                         "parent) in turns with this one, on every f32 path's tables")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
@@ -2461,6 +2527,12 @@ def main() -> int:
         print(f"--- {name} ptxas ---\n{log.strip()}")
     for name in build.SOURCES:
         build.library(name)
+    if args.before:
+        global BEFORE_CONV
+        t0 = time.perf_counter()
+        BEFORE_CONV = load_before_conv(args.before)
+        print(f"phase 2: built gather_conv from {args.before} (--before) in "
+              f"{time.perf_counter() - t0:.1f} s")
     kernels = (block_conv.rulebook_conv, window_conv.keyed_conv, lookup.sorted_lookup,
                gather_conv.gather_conv, block_extract.block_extract)
     path_launches = {}  # main path -> {kernel: launches in its run}
@@ -2723,7 +2795,7 @@ def main() -> int:
             library_ms=rec.get("library_ms"),
             per=(f"one {unit}'s launches (sum over its calls, each call's time the "
                  f"median of 10 CUDA-event-timed calls)"
-                 + (" at bf16" if "flops" in rec else "")
+                 + (f" in {rec['dtype']}" if "flops" in rec else "")
                  + ("; library: torch.searchsorted on the same flattened queries, "
                     "positions only (no perm gather, no hit test, one search per "
                     "triple centre)" if name == "sorted_lookup" else "")))
@@ -2735,6 +2807,8 @@ def main() -> int:
                 entry["paths"][label] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms,
                                              bound_by=b_by, library_ms=r["library_ms"],
                                              max_abs_err=r["err"])
+                entry["paths"][label].update(
+                    {k: r[k] for k in ("dtype", "bf16_ms", "before_ms") if k in r})
         out_kernels.append(entry)
     print(json.dumps({"frames_per_s": fps, "frames_per_s_runs": fps_runs,
                       "b1_no_plans_frames_per_s": fps_nop,

@@ -15,15 +15,16 @@
 // L2: the V x Cin table is at most 120k x 16 x 2 bytes) and W, and writes
 // M*Co*4 bytes; at Cin*Co <= 2048 the bytes bound these convs.
 //
-// bf16 runs the tensor-core warp core of gather_mma.cuh (all of W, 20.7 to
-// 124.4 KB, once per block in shared memory; each warp reads its 16 rows'
-// 16 x K rulebook entries in one coalesced load, walks their hit taps with
-// A fragments loaded straight from L2 into registers). A rulebook row
-// outside [0, V) is a miss, the contract of gather_conv's table, so the
-// finder reads it as it is. f32 runs the CUDA-core core gather_conv.cuh,
-// kept for parity checks. The choice is by dtype; either launch that fails
-// is reported.
-#include "gather_conv.cuh"
+// Both dtypes run the tensor-core cores of gather_mma.cuh: bf16 (the B=1
+// planned step's trunk) on mma.sync m16n8k16, the warp core for all of
+// these convs (all of W, 20.7 to 124.4 KB, once per block in shared memory;
+// each warp reads its 16 rows' 16 x K rulebook entries in one coalesced
+// load, walks their hit taps with A fragments loaded straight from L2 into
+// registers); f32 (the parity route) as three TF32 passes on m16n8k8,
+// f32-accurate, the warp core through 32 -> 32 and the staged core for
+// down2 (W twice the bytes). A rulebook row outside [0, V) is a miss, the
+// contract of gather_conv's table, so the finder reads it as it is. A
+// launch that fails is reported.
 #include "gather_mma.cuh"
 
 namespace {
@@ -37,25 +38,6 @@ struct RulebookFind {
   }
 };
 
-template <int CO>
-__global__ void __launch_bounds__(gconv::THREADS)
-rulebook_conv_kernel(const float* __restrict__ feats, const int* __restrict__ nbr,
-                     const float* __restrict__ w, float* __restrict__ out, int V,
-                     int M, int K, int Cin) {
-  gconv::gather_gemm_tile<CO>(feats, w, out, V, M, K, Cin, RulebookFind{nbr, K});
-}
-
-template <int CO>
-struct Launch {
-  static void run(dim3 grid, cudaStream_t stream, const void* feats,
-                  const int* nbr, const void* w, float* out, int V, int M,
-                  int K, int Cin) {
-    rulebook_conv_kernel<CO><<<grid, gconv::THREADS, 0, stream>>>(
-        static_cast<const float*>(feats), nbr, static_cast<const float*>(w), out, V, M,
-        K, Cin);
-  }
-};
-
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched).
@@ -63,8 +45,8 @@ extern "C" int rulebook_conv_launch(const void* feats, const int* nbr,
                                     const void* w, float* out, int V, int M,
                                     int K, int Cin, int Co, int bf16,
                                     void* stream) {
-  if (K < 1 || K > gconv::KMAX || Cin < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return gmma::launch(RulebookFind{nbr, K}, feats, w, out, V, M, K, Cin, Co, s);
-  return gconv::dispatch<Launch>(Co, M, s, feats, nbr, w, out, V, M, K, Cin);
+  const RulebookFind find{nbr, K};
+  return bf16 ? gmma::launch<gmma::bf16>(find, feats, w, out, V, M, K, Cin, Co, s)
+              : gmma::launch<float>(find, feats, w, out, V, M, K, Cin, Co, s);
 }

@@ -16,15 +16,19 @@
 // models/backbone.py without plans). Per conv the kernel reads the gather
 // table (M*K*4 bytes), the gathered rows (the V x Cin table is at most
 // 480k x 16 x 2 bytes at 4 lanes, L2-resident) and W, and writes M*Co*4
-// bytes; 2*hits*Cin*Co FLOPs at 0.9-13 hits per row put every conv of the
-// step on the bytes side of the H100's roofline.
+// bytes; 2*hits*Cin*Co FLOPs at 0.9-13 hits per row put every bf16 conv
+// of the step on the bytes side of the H100's roofline.
 //
-// bf16 inputs (the serving trunk's type) run the tensor-core cores of
-// gather_mma.cuh: the warp core for conv_input through down2 and the extra
-// conv, the staged core for res2, down3 and res3. f32 inputs run the
-// CUDA-core core gather_conv.cuh, kept for parity checks at f32. The choice
-// is by dtype; either launch that fails is reported.
-#include "gather_conv.cuh"
+// Both dtypes run the tensor-core cores of gather_mma.cuh: bf16 (the
+// serving steps' trunk) on mma.sync m16n8k16, f32 (every CLI path: serving,
+// eval, training, the feature cache, BEVMap) as three TF32 passes on
+// m16n8k8, f32-accurate. bf16 takes the warp core for conv_input through
+// down2 and the extra conv, the staged core for res2, down3 and res3; f32
+// (twice the bytes of W) the warp core through res1, the staged core from
+// down2 on. f32 moves twice the feature and W bytes of bf16, and its
+// products, priced at 495/3 TFLOP/s, bound it on the denser frames (a
+// served frame, BEVMap's); the bytes bound bf16 everywhere. A launch that
+// fails is reported.
 #include "gather_mma.cuh"
 
 namespace {
@@ -38,25 +42,6 @@ struct GatherFind {
   }
 };
 
-template <int CO>
-__global__ void __launch_bounds__(gconv::THREADS)
-gather_conv_kernel(const float* __restrict__ feats, const int* __restrict__ gather,
-                   const float* __restrict__ w, float* __restrict__ out, int V,
-                   int M, int K, int Cin) {
-  gconv::gather_gemm_tile<CO>(feats, w, out, V, M, K, Cin, GatherFind{gather, K});
-}
-
-template <int CO>
-struct Launch {
-  static void run(dim3 grid, cudaStream_t stream, const void* feats,
-                  const int* gather, const void* w, float* out, int V, int M,
-                  int K, int Cin) {
-    gather_conv_kernel<CO><<<grid, gconv::THREADS, 0, stream>>>(
-        static_cast<const float*>(feats), gather, static_cast<const float*>(w), out, V,
-        M, K, Cin);
-  }
-};
-
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched).
@@ -64,13 +49,15 @@ extern "C" int gather_conv_launch(const void* feats, const int* gather,
                                   const void* w, float* out, int V, int M,
                                   int K, int Cin, int Co, int bf16,
                                   void* stream) {
-  if (K < 1 || K > gconv::KMAX || Cin < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return gmma::launch(GatherFind{gather, K}, feats, w, out, V, M, K, Cin, Co, s);
-  return gconv::dispatch<Launch>(Co, M, s, feats, gather, w, out, V, M, K, Cin);
+  const GatherFind find{gather, K};
+  return bf16 ? gmma::launch<gmma::bf16>(find, feats, w, out, V, M, K, Cin, Co, s)
+              : gmma::launch<float>(find, feats, w, out, V, M, K, Cin, Co, s);
 }
 
-// The bf16 core a conv of these shapes takes (gmma::Core: 0 the warp core,
-// 1 the staged core); the same in every kernel library, which all launch
-// through gather_mma.cuh.
-extern "C" int gather_mma_core(int K, int Cin, int Co) { return gmma::core_of(K, Cin, Co); }
+// The core a conv of these shapes and dtype takes (gmma::Core: 0 the warp
+// core, 1 the staged core); the same in every kernel library, which all
+// launch through gather_mma.cuh.
+extern "C" int gather_mma_core(int K, int Cin, int Co, int f32) {
+  return f32 ? gmma::core_of<float>(K, Cin, Co) : gmma::core_of<gmma::bf16>(K, Cin, Co);
+}

@@ -20,10 +20,13 @@
 // bound them. The key table (V x 4 bytes) and the feature table (at most
 // 25k x 64 x 2 bytes) are L2-resident.
 //
-// bf16 runs the tensor-core cores of gather_mma.cuh: res2, down3 and res3
-// the staged core, the extra conv (104 KB of W) the warp core. f32 runs the
-// CUDA-core core gather_conv.cuh, kept for parity checks. The choice is by
-// dtype; either launch that fails is reported.
+// Both dtypes run the tensor-core cores of gather_mma.cuh: bf16 (the B=1
+// planned step's trunk) on mma.sync m16n8k16, res2, down3 and res3 on the
+// staged core, the extra conv (104 KB of W) on the warp core; f32 (the
+// parity route) as three TF32 passes on m16n8k8, f32-accurate, all four on
+// the staged core (the extra conv's W is 209 KB in f32), so every f32
+// launch with K a multiple of 3 resolves its tiles by dx triple. A launch
+// that fails is reported.
 //
 // Finding the neighbours. One full binary search per (row, tap) costs ~14
 // dependent L2 loads at V = 12k, ~95 per thread of a 128 x 27 tile before
@@ -41,7 +44,6 @@
 // is not a multiple of 3, search per query.
 #include <climits>
 
-#include "gather_conv.cuh"
 #include "gather_mma.cuh"
 #include "sorted_search.cuh"
 
@@ -117,26 +119,6 @@ struct KeyedFind {
   }
 };
 
-template <int CO>
-__global__ void __launch_bounds__(gconv::THREADS)
-keyed_conv_kernel(const int* __restrict__ skeys, const int* __restrict__ perm,
-                  const int* __restrict__ q, const float* __restrict__ feats,
-                  const float* __restrict__ w, float* __restrict__ out, int V,
-                  int M, int K, int Cin) {
-  gconv::gather_gemm_tile<CO>(feats, w, out, V, M, K, Cin, KeyedFind{skeys, perm, q, V, K});
-}
-
-template <int CO>
-struct Launch {
-  static void run(dim3 grid, cudaStream_t stream, const int* skeys,
-                  const int* perm, const int* q, const void* feats,
-                  const void* w, float* out, int V, int M, int K, int Cin) {
-    keyed_conv_kernel<CO><<<grid, gconv::THREADS, 0, stream>>>(
-        skeys, perm, q, static_cast<const float*>(feats), static_cast<const float*>(w),
-        out, V, M, K, Cin);
-  }
-};
-
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched).
@@ -145,9 +127,8 @@ extern "C" int keyed_conv_launch(const int* skeys, const int* perm,
                                  const void* w, float* out, int V, int M,
                                  int K, int Cin, int Co, int bf16,
                                  void* stream) {
-  if (K < 1 || K > gconv::KMAX || Cin < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return gmma::launch(KeyedFind{skeys, perm, q, V, K}, feats, w, out, V, M, K, Cin, Co, s);
-  return gconv::dispatch<Launch>(Co, M, s, skeys, perm, q, feats, w, out, V, M, K, Cin);
+  const KeyedFind find{skeys, perm, q, V, K};
+  return bf16 ? gmma::launch<gmma::bf16>(find, feats, w, out, V, M, K, Cin, Co, s)
+              : gmma::launch<float>(find, feats, w, out, V, M, K, Cin, Co, s);
 }

@@ -9,16 +9,18 @@ A rulebook entry of -1 (or any row outside [0, V)) is a miss and adds
 nothing. feats and weight share one dtype, f32 or bf16; the sum is f32.
 
 The CUDA kernel (csrc/block_conv.cu) reads the rulebook as gather_conv
-reads its table. bf16 inputs run the tensor-core warp core of
-csrc/gather_mma.cuh: all of W (at most 124 KB at 32 -> 64) once per block
-in shared memory, each warp reads its 16 rows' rulebook entries in one
-coalesced load and walks their hit taps with mma.sync, the sums in
-registers. f32 inputs run the CUDA-core core csrc/gather_conv.cuh, kept for
-parity checks. What bounds it on the H100: 2*hits*Cin*Co FLOPs against the
-rulebook (M*K*4 bytes, most of them), the output (M*Co*4) and the gathered
-rows; the V x Cin table (at most 120k x 16 x 2 bytes at bench scale) fits
-in the 50 MB L2, so gathers hit L2. At the main path's Cin*Co <= 2048 the
-bound is the bytes.
+reads its table. Both dtypes run the tensor-core cores of
+csrc/gather_mma.cuh (f32 sums, no atomics): bf16 (the planned step's trunk)
+on mma.sync m16n8k16, every conv of the path on the warp core: all of W
+(at most 124 KB at 32 -> 64) once per block in shared memory, each warp
+reads its 16 rows' rulebook entries in one coalesced load and walks their
+hit taps, the sums in registers. f32 (the parity route) runs as three TF32
+passes on m16n8k8, f32-accurate: the warp core through 32 -> 32, the staged
+core for 32 -> 64, whose f32 W does not fit. What bounds it on the H100:
+2*hits*Cin*Co FLOPs against the rulebook (M*K*4 bytes, most of them), the
+output (M*Co*4) and the gathered rows; the V x Cin table (at most 120k x 16
+x 2 bytes at bench scale in bf16) fits in the 50 MB L2, so gathers hit L2.
+At the main path's Cin*Co <= 2048 the bound is the bytes.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises.

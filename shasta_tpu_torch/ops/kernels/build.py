@@ -75,13 +75,15 @@ def build_all() -> dict:
     return report
 
 
-def build_variant(name: str, tag: str, edit: tuple | None = None) -> ctypes.CDLL:
-    """csrc/<name>.cu built from a copy of csrc under _build/variants/<tag>/
-    with `edit` = (file, old text, new text) applied (the old text must occur
-    once), and loaded: a design the probes time beside the shipped one."""
+def build_variant(name: str, tag: str, edit: tuple | None = None,
+                  src: Path = CSRC) -> ctypes.CDLL:
+    """<name>.cu built from a copy of `src` (csrc, or another checkout's,
+    such as a redesign's parent) under _build/variants/<tag>/ with `edit` =
+    (file, old text, new text) applied (the old text must occur once), and
+    loaded: a design the probes time beside the shipped one."""
     d = BUILD / "variants" / tag
     shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(CSRC, d)
+    shutil.copytree(src, d)
     if edit:
         fname, old, new = edit
         src = (d / fname).read_text()

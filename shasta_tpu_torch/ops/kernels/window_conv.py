@@ -14,13 +14,15 @@ A query < 0 (-2) or SENTINEL is a miss. K is 27 or 3 (the extra conv).
 
 The CUDA kernel (csrc/window_conv.cu) searches the L2-resident key table
 inside the kernel, then gathers rows and sums their products in f32.
-bf16 inputs run the tensor-core cores of csrc/gather_mma.cuh: res2, down3
-and res3 the staged core, whose tile resolver searches once per 64 rows
-and dx triple (csrc/sorted_search.cuh, 128 keys staged in shared memory)
-and on its own only for a tap whose query is not c - 1 + d of its
-triple's centre c, so any queries are exact; the extra conv (K=3) the
-warp core, one search per query. f32 inputs run the CUDA-core core
-csrc/gather_conv.cuh, kept for parity checks. What bounds it on the H100:
+Both dtypes run the tensor-core cores of csrc/gather_mma.cuh: bf16 (the
+planned step's trunk) on mma.sync m16n8k16, f32 (the parity route) as
+three TF32 passes on m16n8k8, f32-accurate. res2, down3 and res3 take the
+staged core, whose tile resolver searches once per 64 rows and dx triple
+(csrc/sorted_search.cuh, 128 keys staged in shared memory) and on its own
+only for a tap whose query is not c - 1 + d of its triple's centre c, so
+any queries are exact; the extra conv (K=3) the warp core in bf16, one
+search per query, and the staged core in f32 (its W, 209 KB in f32, does
+not fit the warp core). What bounds it on the H100:
 2*hits*Cin*Co FLOPs (Cin*Co >= 4096 on the main path) against the
 queries (M*K*4 bytes), the key table and the output (M*Co*4); below ~7
 hits per row, as on the bench frame, the bytes bound it. The V x Cin

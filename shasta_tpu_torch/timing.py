@@ -3,9 +3,10 @@ checks of chip_smoke.py and of the block-extraction probe.
 
 The peaks are NVIDIA's data sheet for the H100 SXM (dense, at its full 700
 W limit): the least time a function can take is the larger of its bytes
-over HBM_BYTES_PER_S and the time of its operations, products in FLOPs over
-PEAK_OPS_PER_S[type], every other operation one lane instruction at the
-rate of the pipe that runs it (`ops_ms`).
+over HBM_BYTES_PER_S and the time of its operations: a conv's products in
+FLOPs over PRODUCT_FLOPS_PER_S[dtype], CUDA-core FMAs over
+PEAK_OPS_PER_S["float32"], every other operation one lane instruction at
+the rate of the pipe that runs it (`ops_ms`).
 """
 from __future__ import annotations
 
@@ -17,6 +18,12 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 # FLOP/s: bf16 on the tensor cores; f32 FMAs (two FLOPs each) off them
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# FLOP/s of f32-accurate products on the tensor cores: three TF32 passes
+# (hi*hi + hi*lo + lo*hi, each operand split into two TF32 parts) at the
+# data sheet's 495 TFLOP/s dense TF32, the fastest f32-accurate route
+TF32X3_FLOPS_PER_S = 495e12 / 3
+# the rate a conv's products are priced at, by the dtype of its operands
+PRODUCT_FLOPS_PER_S = {"bfloat16": PEAK_OPS_PER_S["bfloat16"], "float32": TF32X3_FLOPS_PER_S}
 # lane instructions per second: per SM and clock the f32 pipe runs 128 lanes
 # and the int32 pipe 64 (NVIDIA H100 Tensor Core GPU Architecture white
 # paper), on 132 SMs at the data sheet's 1.98 GHz boost clock

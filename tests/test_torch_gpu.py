@@ -102,7 +102,7 @@ def test_b1_conv_kernels_on_their_cores_on_the_card():
         assert M % 128
         for order, qq in (("key order", q), ("shuffled", q[torch.randperm(M, generator=g)])):
             for cin, co in widths:
-                cores.add(mma_core(K, cin, co))
+                cores.add(mma_core(K, cin, co, torch.bfloat16))
                 check(keyed_conv, keyed_conv_plain, (*table, qq.to(dev)), cin, co, K, V,
                       (tag, order, cin, co))
     assert cores == set(MMA_CORES), cores
@@ -124,6 +124,67 @@ def test_b1_conv_kernels_on_their_cores_on_the_card():
                         lambda i, f, w: rulebook_conv_plain(f, i, w),
                         (nbr.to(dev),), cin, co, 27, V, (cin, co, pattern))
             assert got[256:512].abs().max() == 0
+
+
+TRUNK_WIDTHS = ((5, 16, 27), (16, 16, 27), (16, 32, 27), (32, 32, 27), (32, 64, 27),
+                (64, 64, 27), (64, 128, 27), (128, 128, 27), (128, 128, 3))
+
+
+@pytest.mark.gpu
+def test_f32_route_of_the_three_convs_on_the_card():
+    """The f32 route (3xTF32 on the tensor cores) of gather_conv,
+    rulebook_conv and keyed_conv against their plain versions on the card
+    (TF32 off) within 1e-4 x max(1, |out|), and a second f32 run giving the
+    same bits, at every trunk width (both cores: f32 leaves the warp core
+    after 32 -> 32), at 1 and 7 hits per row of 27 taps. Misses are rows >=
+    V and < 0 (keyed_conv: -2, SENTINEL and keys the table lacks), rows
+    256-511 miss every tap (a warp-core block, two staged tiles), M is not a
+    multiple of either core's tile, and keyed_conv's perm is shuffled."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from shasta_tpu_torch.ops.kernels.block_conv import rulebook_conv, rulebook_conv_plain
+    from shasta_tpu_torch.ops.kernels.gather_conv import (MMA_CORES, gather_conv,
+                                                          gather_conv_plain, mma_core)
+    from shasta_tpu_torch.ops.kernels.lookup import SENTINEL
+    from shasta_tpu_torch.ops.kernels.window_conv import keyed_conv, keyed_conv_plain
+
+    dev = resolve_device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    V, M = 3000, 1999
+    keys = 2 * torch.sort(torch.randperm(8 * V, generator=g)[:V])[0].to(torch.int32)  # even
+    perm = torch.randperm(V, generator=g).to(torch.int32)  # sorted row i is feats[perm[i]]
+    key_of_row = torch.empty(V, dtype=torch.int32)
+    key_of_row[perm.long()] = keys
+    table = (keys.to(dev), perm.to(dev))
+    cores = set()
+    for cin, co, K in TRUNK_WIDTHS:
+        cores.add(mma_core(K, cin, co, torch.float32))
+        for hits in (1.0, 7.0):
+            rows = torch.randint(0, V, (M, K), generator=g, dtype=torch.int32)
+            miss = torch.rand((M, K), generator=g) >= hits / 27
+            miss[256:512] = True
+            kind = torch.randint(0, 3, (M, K), generator=g)
+            rows = torch.where(miss, torch.where(kind == 0, -1, V + kind), rows).to(torch.int32)
+            q = torch.where(miss, torch.where(kind == 0, -2, torch.where(
+                kind == 1, SENTINEL, 2 * torch.randint(0, 8 * V, (M, K), generator=g) + 1)),
+                key_of_row[rows.clamp(0, V - 1).long()]).to(torch.int32)
+            f = torch.randn(V, cin, generator=g).to(dev)
+            w = (torch.randn(K, cin, co, generator=g) / (K * cin) ** 0.5).to(dev)
+            rows, q = rows.to(dev), q.to(dev)
+            for name, kern, plain in (
+                    ("gather_conv", lambda: gather_conv(f, rows, w),
+                     lambda: gather_conv_plain(f, rows, w)),
+                    ("rulebook_conv", lambda: rulebook_conv(f, rows, w),
+                     lambda: rulebook_conv_plain(f, rows, w)),
+                    ("keyed_conv", lambda: keyed_conv(*table, q, f, w),
+                     lambda: keyed_conv_plain(*table, q, f, w))):
+                got, want = kern(), plain()
+                tag = (name, cin, co, K, hits)
+                err = float((got - want).abs().max())
+                assert err <= 1e-4 * max(1.0, float(want.abs().max())), (tag, err)
+                assert got[256:512].abs().max() == 0, tag
+                assert torch.equal(kern(), got), tag
+    assert cores == set(MMA_CORES), cores
 
 
 @pytest.mark.gpu

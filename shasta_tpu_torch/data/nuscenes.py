@@ -32,6 +32,7 @@ import numpy as np
 
 from .. import runtime
 from ..core.boxes import quaternion_yaw
+from ..utils.profiler import annotate
 
 
 # ---------------------------------------------------------------------------
@@ -340,17 +341,19 @@ class NuScenesTrackDataset:
         out: dict[str, Any] = {"token": token, "prev_token": prev_token}
 
         if prev_token:
-            pb, pcls, prev_keep, n_prev = load_frame_detections(
-                self.det_path, self.cls_info_path, prev_token,
-                self.det_type, self.max_objects, td, rng,
-            )
+            with annotate("data.dets"):
+                pb, pcls, prev_keep, n_prev = load_frame_detections(
+                    self.det_path, self.cls_info_path, prev_token,
+                    self.det_type, self.max_objects, td, rng,
+                )
         else:
             pb = np.zeros((self.max_objects, 11))
             pcls, prev_keep, n_prev = [], list(range(self.max_objects)), 0
-        cb, ccls, keep, n_curr = load_frame_detections(
-            self.det_path, self.cls_info_path, token,
-            self.det_type, self.max_objects, td, rng,
-        )
+        with annotate("data.dets"):
+            cb, ccls, keep, n_curr = load_frame_detections(
+                self.det_path, self.cls_info_path, token,
+                self.det_type, self.max_objects, td, rng,
+            )
         out.update(
             prev_det_boxes=pb.astype(np.float32),
             det_boxes=cb.astype(np.float32),
@@ -385,12 +388,15 @@ class NuScenesTrackDataset:
             prev_info = (
                 self._infos[self._token_to_idx[prev_token]] if prev_token else info
             )
+            # one data.points and one data.voxelize span per cloud
             for prefix, inf in (("", info), ("prev_", prev_info)):
-                pts = load_sweep_points(inf, self.pipeline.nsweeps, rng)
-                v, c, n, m = voxelize_frame(
-                    pts, self.pipeline, rng, train=not self.test_mode,
-                    sort_by_key=self.pipeline.sort_voxels,
-                )
+                with annotate("data.points"):
+                    pts = load_sweep_points(inf, self.pipeline.nsweeps, rng)
+                with annotate("data.voxelize"):
+                    v, c, n, m = voxelize_frame(
+                        pts, self.pipeline, rng, train=not self.test_mode,
+                        sort_by_key=self.pipeline.sort_voxels,
+                    )
                 out[prefix + "voxels"] = v
                 out[prefix + "coordinates"] = c
                 out[prefix + "num_points"] = n

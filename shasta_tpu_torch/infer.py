@@ -29,7 +29,6 @@ from collections import deque
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from . import plans as hp
 from .core.bilinear import sample_bev_features
@@ -42,6 +41,7 @@ from .tracker import scan_tracker as st
 from .tracker.decision import apply_decision_rules
 from .tracker.pub_tracker import (NUSCENE_CLS_VELOCITY_ERROR,
                                   NUSCENES_TRACKING_NAMES, TRK_REF)
+from .utils.profiler import annotate
 
 FRAME_KEYS = ("voxels", "num_points", "coordinates", "voxels_valid", "det_boxes")
 
@@ -95,11 +95,12 @@ class StepOutput:
 
     def _arr(self) -> np.ndarray:
         if self._np is None:
-            if self._host is not None:
-                self._event.synchronize()
-                self._np = self._host.numpy()
-            else:
-                self._np = self._packed.cpu().numpy()
+            with annotate("step.fetch"):  # the wait for the outputs' copy
+                if self._host is not None:
+                    self._event.synchronize()
+                    self._np = self._host.numpy()
+                else:
+                    self._np = self._packed.cpu().numpy()
             self._packed = None
         return self._np
 
@@ -200,9 +201,11 @@ class ScenePipeline:
     def step_frame(self, frame: dict, n_curr: int, time_lag: float) -> StepOutput:
         """frame: fixed-shape single-frame batch (B=1) of numpy arrays or
         tensors, with or without plan_* arrays."""
-        lag = upload(np.float32(time_lag), self.device)
-        return StepOutput(self._step(_frame_on(frame, self.device), int(n_curr), lag),
-                          self.model.cfg.max_obj)
+        with annotate("step.frame"):
+            with annotate("step.upload"):
+                lag = upload(np.float32(time_lag), self.device)
+                f = _frame_on(frame, self.device)
+            return StepOutput(self._step(f, int(n_curr), lag), self.model.cfg.max_obj)
 
     def step_chunk(self, frames: dict, n_currs, time_lags) -> StepOutput:
         """T consecutive frames of one scene in one call: frames' arrays
@@ -210,10 +213,13 @@ class ScenePipeline:
         arrays too, or none); n_currs and time_lags have length T. The carry
         stays on the device across the T steps (the JAX lax.scan), and the
         (T, 6, 2N) outputs come back as one StepOutput, fetched once."""
-        f = _frame_on(frames, self.device)
-        lags = upload(np.asarray(time_lags, np.float32), self.device)
-        packed = [self._step({k: v[t] for k, v in f.items()}, int(n), lags[t])
-                  for t, n in enumerate(n_currs)]
+        with annotate("step.upload"):
+            f = _frame_on(frames, self.device)
+            lags = upload(np.asarray(time_lags, np.float32), self.device)
+        packed = []
+        for t, n in enumerate(n_currs):
+            with annotate("step.frame"):
+                packed.append(self._step({k: v[t] for k, v in f.items()}, int(n), lags[t]))
         return StepOutput(torch.stack(packed), self.model.cfg.max_obj)
 
     def _step(self, f: dict, n_curr: int, lag: torch.Tensor) -> torch.Tensor:
@@ -221,12 +227,12 @@ class ScenePipeline:
         packed (6, 2N) outputs."""
         N = self.model.cfg.max_obj
         with torch.no_grad():
-            with record_function("step.trunk"):
+            with annotate("step.trunk"):
                 curr_feat = self.model.frame_features(f)
-            with record_function("step.affinity"):
+            with annotate("step.affinity"):
                 m1, m2 = self.model.affinity_step(self._prev_boxes, f["det_boxes"],
                                                   self._prev_feat, curr_feat)
-            with record_function("step.decide_track"):
+            with annotate("step.decide_track"):
                 dec = apply_decision_rules(m1[0], m2[0], self._n_prev, n_curr,
                                            fp_thresh=self.fp_thresh,
                                            decision_thresh=self.decision_thresh)
@@ -298,20 +304,25 @@ class BatchedScenePipeline:
         """frame: batched arrays (B, ...) of numpy arrays or tensors; n_curr
         (B,) real det counts; reset (B,) new-scene flags; time_lags (B,).
         Returns a StepOutput whose fields have a leading (B,) axis."""
-        # the per-lane scalars in one host-to-device copy
-        sc = upload(self._scalars([n_curr], [reset], [time_lags])[0], self.device)
-        return StepOutput(self._step(_frame_on(frame, self.device), sc),
-                          self.model.cfg.max_obj)
+        with annotate("step.frame"):
+            with annotate("step.upload"):
+                # the per-lane scalars in one host-to-device copy
+                sc = upload(self._scalars([n_curr], [reset], [time_lags])[0], self.device)
+                f = _frame_on(frame, self.device)
+            return StepOutput(self._step(f, sc), self.model.cfg.max_obj)
 
     def step_chunk(self, frames: dict, n_currs, resets, time_lags) -> StepOutput:
         """All B lanes through T frames in one call: frames' arrays are
         (T, B, ...); n_currs, resets and time_lags (T, B). The carry stays
         on the device across the T steps; the (T, B, 6, 2N) outputs come
         back as one StepOutput, fetched once."""
-        f = _frame_on(frames, self.device)
-        sc = upload(self._scalars(n_currs, resets, time_lags), self.device)
-        packed = [self._step({k: v[t] for k, v in f.items()}, sc[t])
-                  for t in range(sc.shape[0])]
+        with annotate("step.upload"):
+            f = _frame_on(frames, self.device)
+            sc = upload(self._scalars(n_currs, resets, time_lags), self.device)
+        packed = []
+        for t in range(sc.shape[0]):
+            with annotate("step.frame"):
+                packed.append(self._step({k: v[t] for k, v in f.items()}, sc[t]))
         return StepOutput(torch.stack(packed), self.model.cfg.max_obj)
 
     def _step(self, f: dict, sc: torch.Tensor) -> torch.Tensor:
@@ -325,12 +336,12 @@ class BatchedScenePipeline:
             tables = st.TrackTable(*(
                 torch.where(rz.reshape((B,) + (1,) * (t.dim() - 1)), torch.zeros_like(t), t)
                 for t in self._tables))
-            with record_function("step.trunk"):
+            with annotate("step.trunk"):
                 curr_feat = self.model.frame_features(f)
-            with record_function("step.affinity"):
+            with annotate("step.affinity"):
                 m1, m2 = self.model.affinity_step(prev_boxes, f["det_boxes"],
                                                   prev_feat, curr_feat)
-            with record_function("step.decide_track"):
+            with annotate("step.decide_track"):
                 dec = apply_decision_rules(m1, m2, sc[1].to(torch.int32),
                                            sc[2].to(torch.int32),
                                            fp_thresh=self.fp_thresh,
@@ -449,9 +460,12 @@ class MultiClassScenePipeline:
         the B=1 voxel arrays, with plan_* arrays (the planned trunk) or
         without (every index built on the device); class_boxes: {name: (det boxes (1, N_c, 11),
         n_curr)} as host arrays. The tracker state has advanced on return."""
+        with annotate("step.frame"):
+            return self._dispatch(frame, class_boxes, time_lag)
+
+    def _dispatch(self, frame: dict, class_boxes: dict, time_lag: float):
         cfg = self.trunk.cfg
         dev, C, N = self.device, len(self._names), self.n_max
-        f = _frame_on(frame, dev)
         boxes = np.zeros((C, N, 11), np.float32)
         n_curr = np.zeros((C,), np.float32)
         skip = np.ones((C,), np.float32)
@@ -461,25 +475,27 @@ class MultiClassScenePipeline:
                 b = np.asarray(b, np.float32).reshape(-1, 11)
                 boxes[i, :b.shape[0]] = b
                 n_curr[i], skip[i] = nc, 0.0
-        # the boxes and per-class scalars in one host-to-device copy
-        buf = upload(np.concatenate([boxes.reshape(-1), self._n_prev, n_curr, skip,
-                                     [time_lag]]).astype(np.float32), dev)
+        with annotate("step.upload"):
+            f = _frame_on(frame, dev)
+            # the boxes and per-class scalars in one host-to-device copy
+            buf = upload(np.concatenate([boxes.reshape(-1), self._n_prev, n_curr, skip,
+                                         [time_lag]]).astype(np.float32), dev)
         boxes_st = buf[:C * N * 11].view(C, 1, N, 11)
         sc = buf[C * N * 11:]
         absent = sc[2 * C:3 * C] > 0.5
         with torch.no_grad():
-            with record_function("step.trunk"):
+            with annotate("step.trunk"):
                 bev = self.trunk.bev_single(f)
                 pts = box_points_5(boxes_st[:, 0, :, :7])  # (C, N, 5, 3)
                 curr_feat = sample_bev_features(
                     bev, pts.reshape(1, C * N, *pts.shape[2:]), cfg.pc_start,
                     cfg.voxel_size, cfg.out_stride).reshape(C, 1, N, -1).float()
-            with record_function("step.affinity"):
+            with annotate("step.affinity"):
                 cb = boxes_st[:, 0]
                 m1, m2 = self.head(self._prev_boxes[:, 0, :, :7], cb[..., :7], cb[..., 7:9],
                                    cb[..., 9:10], self._prev_feat[:, 0], curr_feat[:, 0],
                                    n_real=self._n_real)
-            with record_function("step.decide_track"):
+            with annotate("step.decide_track"):
                 dec = apply_decision_rules(m1, m2, sc[:C].to(torch.int32),
                                            sc[C:2 * C].to(torch.int32),
                                            fp_thresh=self.fp_thresh,

@@ -201,16 +201,19 @@ class SparseBackbone(nn.Module):
         + 4 identity compactions) and all 21 convs on gather_conv (plain:
         their plain versions). The stage-0 table takes a stable argsort;
         every strided output set is key-sorted, so later tables need none
-        (backbone.py:210-287)."""
+        (backbone.py:210-287). While a profiler records, each strided stage
+        counts its set against its cap (trunk.cap.<stage>.*, per lane)."""
         dt = self.dtype
         table = sp.key_table(st)
         x = self._stage0(st, sp.build_subm_index(st, table, plain), dt)
-        for stage, cap in zip((self.conv2, self.conv3, self.conv4), self.caps):
-            x = stage(x, sp.build_strided_plan(x, *stage.geometry(), cap, table, plain), dt)
+        for name, stage, cap in zip(("conv2", "conv3", "conv4"),
+                                    (self.conv2, self.conv3, self.conv4), self.caps):
+            x = stage(x, sp.build_strided_plan(x, *stage.geometry(), cap, table, plain,
+                                               name), dt)
             table = sp.key_table_presorted(x)
             x = _blocks(stage, x, sp.build_subm_index(x, table, plain), dt)
         return self.extra_conv(x, sp.build_strided_plan(
-            x, *self.extra_conv.geometry(), self.caps[3], table, plain), dt)
+            x, *self.extra_conv.geometry(), self.caps[3], table, plain, "extra"), dt)
 
     def trains(self) -> bool:
         """Whether this call builds a graph through the trunk: grad mode is

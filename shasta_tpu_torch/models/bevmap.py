@@ -13,9 +13,9 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..device import resolve_device, upload
+from ..utils.profiler import annotate
 from .backbone import SparseBackbone
 from .rpn import RPN
 from .shasta import ShastaConfig, frame_sparse
@@ -50,8 +50,8 @@ class BEVMap(nn.Module):
         frame = {k: upload(v, self.device) for k, v in frame.items()
                  if k in VOXEL_KEYS or k.startswith("plan_")}
         st, plans = frame_sparse(self.cfg, frame)
-        with record_function("bevmap.sparse_trunk"):
+        with annotate("bevmap.sparse_trunk"):
             x = self.backbone(st, plans)
-        with record_function("bevmap.neck"):
+        with annotate("bevmap.neck"):
             x = self.neck(x)
         return x.permute(0, 2, 3, 1)

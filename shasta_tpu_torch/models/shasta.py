@@ -13,12 +13,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from ..core.bilinear import sample_bev_features
 from ..core.boxes import box_points_5
 from ..device import resolve_device
 from ..ops import sparse as sp
+from ..utils.profiler import annotate
 from .affinity import AffinityNet
 from .backbone import SparseBackbone
 from .rpn import RPN, SharedConv
@@ -152,9 +152,9 @@ def _voxel_rows(cfg: ShastaConfig, voxels, num_points, coordinates, valid, b_off
 
 def _trunk_from_sparse(backbone: SparseBackbone, neck: RPN, shared_conv: SharedConv,
                        st: sp.SparseTensor, plans: dict | None) -> torch.Tensor:
-    with record_function("step.sparse_trunk"):
+    with annotate("step.sparse_trunk"):
         bev = backbone(st, plans)
-    with record_function("step.neck"):
+    with annotate("step.neck"):
         bev = shared_conv(neck(bev))
     return bev.permute(0, 2, 3, 1)
 

@@ -45,7 +45,8 @@ import numpy as np
 import torch
 
 from ..device import const
-from ..plans import tap_offsets
+from ..plans import count_cap, tap_offsets
+from ..utils import profiler
 from .kernels.block_conv import rulebook_conv
 from .kernels.gather_conv import gather_conv, gather_conv_plain
 from .kernels.lookup import SENTINEL, sorted_lookup, sorted_lookup_plain
@@ -209,13 +210,16 @@ def _strided_candidates(st: SparseTensor, kernel, stride, padding):
 
 
 def strided_output_set(st: SparseTensor, kernel, stride, padding, max_out: int,
-                       plain: bool = False):
+                       plain: bool = False, stage: str | None = None):
     """The exact spconv output set of a strided conv (ops/sparse.py:325-543,
     global layout) -> (coords (max_out, 4), valid, out_shape): candidate
     keys, sort, head flags; slot j takes the first sorted position where
     cumsum(head) == j + 1 (an identity-mode lookup), so the set is
-    ascending, deduplicated and truncated to the max_out smallest keys."""
-    cand, _ = _strided_candidates(st, kernel, stride, padding)
+    ascending, deduplicated and truncated to the max_out smallest keys. A
+    named `stage` counts its set against the cap per lane, on the device
+    (`plans.count_cap`: the head flags by their key's batch index, and of
+    those the first max_out)."""
+    cand, (OZ, OY, OX) = _strided_candidates(st, kernel, stride, padding)
     s = torch.sort(cand).values
     head = (s != torch.cat([s.new_full((1,), -1), s[:-1]])) & (s != SENTINEL)
     ch = torch.cumsum(head, 0, dtype=torch.int32)
@@ -224,15 +228,26 @@ def strided_output_set(st: SparseTensor, kernel, stride, padding, max_out: int,
     pos = lookup(ch, None, slots, "identity")[:, 0].long()
     VC = s.shape[0]
     out_keys = torch.where(pos < VC, s[pos.clamp(max=VC - 1)], SENTINEL)
-    return decode_strided_keys(out_keys, st.shape, kernel, stride, padding, st.batch_size)
+    out = decode_strided_keys(out_keys, st.shape, kernel, stride, padding, st.batch_size)
+    if stage is not None and profiler.recording():
+        # keys are batch-major: the heads before lane b + 1's first key
+        # number cumsum(head) there, and the cap keeps the max_out first
+        s_out = OZ * OY * OX + 1
+        ends = torch.searchsorted(s, torch.arange(s_out, (st.batch_size + 1) * s_out, s_out,
+                                                  dtype=s.dtype, device=s.device))
+        upto = torch.where(ends > 0, ch[ends - 1], 0)
+        zero = upto.new_zeros(1)
+        count_cap(stage, torch.diff(upto, prepend=zero),
+                  torch.diff(upto.clamp(max=max_out), prepend=zero), max_out)
+    return out
 
 
 def build_strided_plan(st: SparseTensor, kernel, stride, padding, max_out: int,
-                       table, plain: bool = False) -> StridedPlan:
-    """`strided_output_set` and its gather index over `table`, the input's
-    (sorted keys, perm)."""
+                       table, plain: bool = False, stage: str | None = None) -> StridedPlan:
+    """`strided_output_set` (counted under `stage`, if named) and its
+    gather index over `table`, the input's (sorted keys, perm)."""
     coords, valid, out_shape = strided_output_set(st, kernel, stride, padding, max_out,
-                                                  plain=plain)
+                                                  plain=plain, stage=stage)
     q = strided_queries(coords, valid, st.shape, kernel, stride, padding)
     if kernel[2] == 3:
         gather = _dx_triples(q, table, st.coords.shape[0], plain)

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .utils import profiler
+
 SENTINEL = np.int64(np.iinfo(np.int32).max)
 _MASK = np.int64(2**62)  # host-internal "no query" marker (int64 domain)
 
@@ -37,12 +39,25 @@ def encode_keys_np(coords: np.ndarray, valid: np.ndarray, shape,
     return np.where(valid, key, filler)
 
 
+def count_cap(stage: str, demand, kept, max_out: int) -> None:
+    """Counts one strided stage's output set against its cap while a
+    profiler records: per lane, `trunk.cap.<stage>.demand` (the distinct
+    output keys the stage's input makes) and `.kept` (the rows the cap
+    keeps, the smallest keys), and `.slots` (the cap, max_out). What the cap
+    cut is demand - kept; kept / slots is the share of slots that hold a
+    row."""
+    profiler.count(f"trunk.cap.{stage}.demand", demand)
+    profiler.count(f"trunk.cap.{stage}.kept", kept)
+    profiler.count(f"trunk.cap.{stage}.slots", max_out)
+
+
 def strided_output_keys(coords: np.ndarray, valid: np.ndarray, kernel,
                         stride, padding, max_out: int, in_shape,
-                        batch_size: int):
+                        batch_size: int, stage: str | None = None):
     """Exact spconv output set, ascending by key with SENTINEL padding: the
     parity-restricted candidate enumeration + sorted dedup + smallest-keys
-    truncation of ops.sparse.build_strided_plan, bit for bit.
+    truncation of ops.sparse.build_strided_plan, bit for bit. A named
+    `stage` counts its set against the cap (`count_cap`).
 
     Returns (out_keys (max_out,) int64 incl. SENTINEL pads, out_shape)."""
     kz, ky, kx = kernel
@@ -72,6 +87,10 @@ def strided_output_keys(coords: np.ndarray, valid: np.ndarray, kernel,
     cell_out = (o[..., 0] * OY + o[..., 1]) * OX + o[..., 2]
     cand = b[:, None] * s_out + cell_out
     u = np.unique(cand[okm])
+    if stage is not None and profiler.recording():
+        lane = u // s_out
+        count_cap(stage, np.bincount(lane, minlength=batch_size),
+                  np.bincount(lane[:max_out], minlength=batch_size), max_out)
     u = u[:max_out]
     out = np.full((max_out,), SENTINEL, np.int64)
     out[: u.shape[0]] = u
@@ -159,7 +178,7 @@ def frame_plans(coords3: np.ndarray, valid: np.ndarray, cfg) -> dict:
 
     down = ((3, 3, 3), (2, 2, 2), (1, 1, 1))
     d1_keys, d1_shape = strided_output_keys(coords, valid, *down,
-                                            cfg.cap_conv2, shape0, 1)
+                                            cfg.cap_conv2, shape0, 1, "conv2")
     c1, v1 = decode_out_coords(d1_keys, d1_shape, 1)
     out["d1_keys"] = d1_keys.astype(np.int32)
     out["d1_rb"] = rulebook(keys0, strided_query_keys(c1, v1, *down, shape0))
@@ -167,7 +186,7 @@ def frame_plans(coords3: np.ndarray, valid: np.ndarray, cfg) -> dict:
     out["d1s_rb"] = rulebook(keys1, subm_query_keys(c1, v1, d1_shape, 1))
 
     d2_keys, d2_shape = strided_output_keys(c1, v1, *down, cfg.cap_conv3,
-                                            d1_shape, 1)
+                                            d1_shape, 1, "conv3")
     c2, v2 = decode_out_coords(d2_keys, d2_shape, 1)
     out["d2_keys"] = d2_keys.astype(np.int32)
     out["d2_rb"] = rulebook(keys1, strided_query_keys(c2, v2, *down, d1_shape))
@@ -175,11 +194,11 @@ def frame_plans(coords3: np.ndarray, valid: np.ndarray, cfg) -> dict:
     # C_in >= 64 stages: only the output sets come from the host; their
     # neighbours are found by key inside keyed_conv
     d3_keys, d3_shape = strided_output_keys(
-        c2, v2, (3, 3, 3), (2, 2, 2), (0, 1, 1), cfg.cap_conv4, d2_shape, 1)
+        c2, v2, (3, 3, 3), (2, 2, 2), (0, 1, 1), cfg.cap_conv4, d2_shape, 1, "conv4")
     c3, v3 = decode_out_coords(d3_keys, d3_shape, 1)
     out["d3_keys"] = d3_keys.astype(np.int32)
     ex_keys, _ = strided_output_keys(
-        c3, v3, (3, 1, 1), (2, 1, 1), (0, 0, 0), cfg.cap_extra, d3_shape, 1)
+        c3, v3, (3, 1, 1), (2, 1, 1), (0, 0, 0), cfg.cap_extra, d3_shape, 1, "extra")
     out["ex_keys"] = ex_keys.astype(np.int32)
     return out
 

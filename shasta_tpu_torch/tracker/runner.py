@@ -25,12 +25,12 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..data.nuscenes import collate
 from ..device import upload
 from ..infer import FRAME_KEYS, RESULT_META, StepOutput, _frame_on
 from ..mot.amota import evaluate_amota, frames_from_tracking_result
+from ..utils.profiler import annotate
 from .decision import apply_decision_rules
 from .pub_tracker import PubTracker, PubTrackerMerged
 
@@ -203,9 +203,10 @@ class EvalLanes:
         for reset, n_curr in zip(np.asarray(resets, bool), np.asarray(n_currs, np.int64)):
             rows.append(np.stack([reset, np.where(reset, 0, self._n_prev), n_curr]))
             self._n_prev = n_curr
-        # the per-lane scalars of all T steps in one host-to-device copy
-        sc = upload(np.stack(rows).astype(np.float32), self.device)
-        f = _frame_on(frames, self.device)
+        with annotate("step.upload"):
+            # the per-lane scalars of all T steps in one host-to-device copy
+            sc = upload(np.stack(rows).astype(np.float32), self.device)
+            f = _frame_on(frames, self.device)
         packed = [self._step({k: v[t] for k, v in f.items()}, sc[t])
                   for t in range(sc.shape[0])]
         return StepOutput(torch.stack(packed), self.model.cfg.max_obj)
@@ -217,12 +218,12 @@ class EvalLanes:
         with torch.no_grad():
             prev_feat = torch.where(rz, 0.0, self._prev_feat)
             prev_boxes = torch.where(rz, 0.0, self._prev_boxes)
-            with record_function("step.trunk"):
+            with annotate("step.trunk"):
                 curr_feat = self.model.frame_features(f)
-            with record_function("step.affinity"):
+            with annotate("step.affinity"):
                 m1, m2 = self.model.affinity_step(prev_boxes, f["det_boxes"], prev_feat,
                                                   curr_feat)
-            with record_function("step.decide"):
+            with annotate("step.decide"):
                 dec = apply_decision_rules(m1, m2, sc[1].to(torch.int32), sc[2].to(torch.int32),
                                            fp_thresh=self.fp_thresh,
                                            decision_thresh=self.decision_thresh)
@@ -252,17 +253,24 @@ def run_affinity_eval_batched(model, dataset, batch: int = 8, fp_thresh: float =
     staged. An idle lane runs a copy of the row's first active frame with
     reset set and no dets. Each call's decisions start their copy to the
     host as soon as it is queued and are assembled after the next call is
-    queued. timings, if given, accumulates host seconds under "read"
-    (metadata and reading frames, voxelization included), "step" (staging
-    and queueing calls) and "assemble" (reading decisions back, building
-    the annotations)."""
-    spent = timings if timings is not None else {}
+    queued. Each part of the loop runs in a profiler span: "eval.read"
+    (metadata and reading frames, voxelization included: the dataset's
+    data.* spans), "eval.step" (staging and queueing calls) and
+    "eval.assemble" (reading decisions back, building the annotations).
+    timings, if given, accumulates the same parts' host seconds under
+    "read", "step" and "assemble"."""
 
     def timed(part, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        spent[part] = spent.get(part, 0.0) + time.perf_counter() - t0
-        return out
+        """fn(*args) in span eval.<part>, which measures the interval in a
+        profiler's trace; where timings is given, its host seconds also go
+        to timings[part]."""
+        with annotate("eval." + part):
+            if timings is None:
+                return fn(*args)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            timings[part] = timings.get(part, 0.0) + time.perf_counter() - t0
+            return out
 
     meta = timed("read", dataset.metadata)
     scenes: list[list[int]] = []

@@ -34,12 +34,12 @@ from typing import Callable
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..device import upload
 from ..infer import FRAME_KEYS
 from ..parallel import dist as pdist
+from ..utils.profiler import annotate
 
 EPS = 1e-10
 FROZEN_TRUNK_KEYS = ("backbone", "neck")
@@ -206,7 +206,7 @@ def pair_forward(model, batch: dict, remat: bool = False):
     frozen trunk runs under no_grad; remat recomputes the part that has
     gradients (the whole forward when the trunk trains) in the backward."""
     def trunk():
-        with record_function("train.trunk"):
+        with annotate("train.trunk"):
             return model.neck(model.backbone(model.pair_tensor(batch)))
 
     if trunk_trains(model):
@@ -215,7 +215,7 @@ def pair_forward(model, batch: dict, remat: bool = False):
         return checkpoint(full, use_reentrant=False) if remat else full()
     with torch.no_grad():
         maps = trunk()
-    with record_function("train.head"):
+    with annotate("train.head"):
         if remat:
             return checkpoint(lambda m: _head(model, m, batch), maps, use_reentrant=False)
         return _head(model, maps, batch)
@@ -260,7 +260,7 @@ def make_train_step(model, tx: Optimizer, bn_train: bool = False, remat: bool = 
         # statistics a second time: keep the forward's
         stats = ({k: v.clone() for k, v in model.state_dict().items() if "running" in k}
                  if remat and bn_train else None)
-        with record_function("train.backward"):
+        with annotate("train.backward"):
             loss.backward()
         if stats:
             sd = model.state_dict()
@@ -268,7 +268,7 @@ def make_train_step(model, tx: Optimizer, bn_train: bool = False, remat: bool = 
                 for k, v in stats.items():
                     sd[k].copy_(v)
         loss = loss.detach()
-        with record_function("train.update"):
+        with annotate("train.update"):
             if pdist.world_size() > 1:
                 pdist.all_reduce_mean(tx.grads() + [loss])
             tx.step()

@@ -5,6 +5,8 @@ port of shasta_tpu/utils/profiler.py.
   activities), writing a Chrome trace under `log_dir`
 - :func:`annotate`: a named span (record_function), the mechanism the
   port's steps use for theirs (step.sparse_trunk, step.neck, ...)
+- :func:`count`, :func:`counters`, :func:`reset_counters`: named counters
+  of the profiled calls (the rows each trunk stage's cap keeps or cuts)
 - :class:`StageTimer`: host-side named stage timing with summaries
 - :func:`cost_analysis`: FLOPs of one call from FlopCounterMode
 """
@@ -15,6 +17,7 @@ import os
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 from torch.utils.flop_counter import FlopCounterMode
@@ -39,6 +42,57 @@ def trace(log_dir: str):
 def annotate(name: str):
     """Named region visible in profiler timelines (record_function)."""
     return record_function(name)
+
+
+# name -> the values counted under it since the last reset, summed when read
+_COUNTS: dict[str, list] = {}
+
+
+def recording() -> bool:
+    """Whether a torch profiler is recording: counters count only then."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+def count(name: str, value) -> None:
+    """Adds `value` to counter `name` while a profiler records, else does
+    nothing. value: a host int or array, or a tensor on any device (a
+    per-lane vector too); a tensor is kept where it is, with no copy to the
+    host, until `counters` reads it. A caller that must build a tensor to
+    count checks `recording()` first."""
+    if not recording():
+        return
+    value = value.detach() if isinstance(value, torch.Tensor) else np.asarray(value)
+    _COUNTS.setdefault(name, []).append(value)
+
+
+def counters() -> dict:
+    """{name: the sum of its counted values}: a number, or a list where a
+    vector was counted (vectors of different lengths sum as if padded with
+    zeros). The values counted on a device come to the host in one copy
+    per device."""
+    on_dev: dict = {}
+    for vs in _COUNTS.values():
+        for v in vs:
+            if isinstance(v, torch.Tensor):
+                on_dev.setdefault(v.device, []).append(v)
+    host = {}
+    for ts in on_dev.values():
+        flat = torch.cat([t.reshape(-1).double() for t in ts]).cpu().numpy()
+        for t, part in zip(ts, np.split(flat, np.cumsum([t.numel() for t in ts])[:-1])):
+            host[id(t)] = part if t.dtype.is_floating_point else part.astype(np.int64)
+    out = {}
+    for name, vs in _COUNTS.items():
+        parts = [host[id(v)] if isinstance(v, torch.Tensor) else v.reshape(-1) for v in vs]
+        total = np.zeros(max(p.size for p in parts), np.result_type(*parts))
+        for p in parts:
+            total[:p.size] += p
+        out[name] = total.tolist() if any(v.ndim for v in vs) else total[0].item()
+    return out
+
+
+def reset_counters() -> None:
+    """Forgets every counted value."""
+    _COUNTS.clear()
 
 
 class StageTimer:

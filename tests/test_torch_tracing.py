@@ -1,0 +1,201 @@
+"""The port's spans and counters (CPU): `utils.profiler.count` outside a
+profiler does nothing, the trunk's cap counters per lane on both routes of
+the index builds, the eval's spans around reading (the dataset's data.*
+spans inside eval.read) and the serving step's step.frame, step.upload and
+step.fetch."""
+import os
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from shasta_tpu_torch.data.synthetic import make_batch, write_split_config, write_track_split
+from shasta_tpu_torch.infer import ScenePipeline
+from shasta_tpu_torch.models import ShastaConfig, ShastaModel
+from shasta_tpu_torch.ops import sparse as sp
+from shasta_tpu_torch.plans import frame_plans
+from shasta_tpu_torch.tools.common import build_dataset, build_model
+from shasta_tpu_torch.tracker.runner import EvalLanes, run_affinity_eval_batched
+from shasta_tpu_torch.utils import Config
+from shasta_tpu_torch.utils import profiler
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(max_obj=6, grid_shape=(41, 48, 48), cap_conv2=512, cap_conv3=256,
+             cap_conv4=128, cap_extra=128)
+STAGES = ("conv2", "conv3", "conv4", "extra")
+HOLD = dict(cap_conv2=20000, cap_conv3=20000, cap_conv4=20000, cap_extra=20000)
+VOXELS = 1500
+
+
+@pytest.fixture(autouse=True)
+def fresh_counters():
+    profiler.reset_counters()
+    yield
+    profiler.reset_counters()
+
+
+class Ops(TorchDispatchMode):
+    """The aten operations run inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _cpu_profile():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _spans(prof, name):
+    """(start, end) in microseconds of each span `name` in the trace."""
+    return [(e.time_range.start, e.time_range.end) for e in prof.events() if e.name == name]
+
+
+def _inside(inner, outer):
+    return all(any(s >= a and e <= b for a, b in outer) for s, e in inner)
+
+
+def _lanes(cfg, B, seed=0):
+    """B frames of make_batch, stacked as one (1, B, ...) chunk."""
+    frames = [make_batch(cfg, num_voxels_cap=VOXELS, n_dets=4, seed=seed + b) for b in range(B)]
+    return {k: np.concatenate([f[k] for f in frames])[None]
+            for k in ("voxels", "num_points", "coordinates", "voxels_valid", "det_boxes")}
+
+
+def _run_lanes(cfg, B):
+    """One EvalLanes step of B lanes under the profiler; the counters."""
+    model = ShastaModel(cfg, device="cpu")
+    lanes = EvalLanes(model, B)
+    with _cpu_profile():
+        lanes.step_chunk(_lanes(cfg, B), [[True] * B], [[4] * B]).array()
+    return profiler.counters()
+
+
+def _cap(c, stage):
+    return {k: c[f"trunk.cap.{stage}.{k}"] for k in ("demand", "kept", "slots")}
+
+
+def test_count_outside_a_profiler_records_nothing_and_allocates_nothing():
+    assert not profiler.recording()
+    cfg = ShastaConfig(**SMALL)
+    f = make_batch(cfg, num_voxels_cap=VOXELS, seed=0)
+    st = sp.SparseTensor(torch.zeros(VOXELS, 5),
+                         torch.cat([torch.zeros(VOXELS, 1, dtype=torch.int32),
+                                    torch.as_tensor(f["coordinates"][0]).int()], 1),
+                         torch.as_tensor(f["voxels_valid"][0]), cfg.grid_shape, 1)
+    geom = ((3, 3, 3), (2, 2, 2), (1, 1, 1))
+    sp.strided_output_set(st, *geom, 64, plain=True)  # makes the cached constants
+    with Ops() as counted:
+        profiler.count("x", 3)
+        profiler.count("y", np.ones(2, np.int64))
+        sp.strided_output_set(st, *geom, 64, plain=True, stage="conv2")
+    with Ops() as uncounted:
+        sp.strided_output_set(st, *geom, 64, plain=True)
+    assert counted.ops == uncounted.ops  # not one tensor more
+    frame_plans(f["coordinates"][0], f["voxels_valid"][0], cfg)
+    assert profiler.counters() == {}
+    with _cpu_profile():
+        profiler.count("x", 3)
+        profiler.count("x", torch.tensor([1, 2]))
+        profiler.count("x", np.array([1]))
+    assert profiler.counters() == {"x": [5, 2]}
+
+
+def test_cap_counters_per_lane_see_the_later_lane_cut():
+    """B=2 lanes: at caps that hold, every row is kept; at caps between
+    lane 0's set and both lanes' sets, lane 0 keeps its keys (the smallest)
+    and lane 1 loses rows."""
+    held = _run_lanes(ShastaConfig(**dict(SMALL, **HOLD)), 2)
+    for stage in STAGES:
+        c = _cap(held, stage)
+        assert c["demand"] == c["kept"] and min(c["demand"]) > 0, (stage, c)
+        assert c["slots"] == 20000
+    d = {s: _cap(held, s)["demand"] for s in STAGES}
+    caps = dict(cap_conv2=d["conv2"][0] + d["conv2"][1] // 2,
+                cap_conv3=d["conv3"][0] + d["conv3"][1] // 2,
+                cap_conv4=d["conv4"][0] + d["conv4"][1] // 2,
+                cap_extra=d["extra"][0] + d["extra"][1] // 2)
+    profiler.reset_counters()
+    cut = _run_lanes(ShastaConfig(**dict(SMALL, **caps)), 2)
+    for stage in STAGES:
+        c = _cap(cut, stage)
+        assert c["kept"][0] == c["demand"][0] == d[stage][0], (stage, c)  # lane 0: no cut
+        assert sum(c["kept"]) <= c["slots"]
+    c2 = _cap(cut, "conv2")
+    assert c2["demand"][1] - c2["kept"][1] == d["conv2"][1] - d["conv2"][1] // 2 > 0
+    assert c2["kept"][1] + c2["kept"][0] == c2["slots"]  # the cap is full
+
+
+@pytest.mark.parametrize("caps", ["hold", "cut"])
+def test_cap_counters_agree_between_the_host_plans_and_the_device_route(caps):
+    cfg = ShastaConfig(**dict(SMALL, **HOLD))
+    if caps == "cut":
+        cfg = ShastaConfig(**dict(SMALL, cap_conv2=300, cap_conv3=150, cap_conv4=60,
+                                  cap_extra=40))
+    f = make_batch(cfg, num_voxels_cap=VOXELS, seed=3)
+    with _cpu_profile():
+        frame_plans(f["coordinates"][0], f["voxels_valid"][0], cfg)
+    host = profiler.counters()
+    profiler.reset_counters()
+    model = ShastaModel(cfg, device="cpu")
+    with _cpu_profile(), torch.no_grad():
+        model.frame_features({k: torch.as_tensor(v) for k, v in f.items()})
+    device = profiler.counters()
+    assert set(host) == {f"trunk.cap.{s}.{k}" for s in STAGES
+                         for k in ("demand", "kept", "slots")}
+    assert host == device
+    cut = sum(_cap(host, s)["demand"][0] - _cap(host, s)["kept"][0] for s in STAGES)
+    assert (cut > 0) == (caps == "cut")
+
+
+def test_eval_spans_name_reading_and_agree_with_its_timings(tmp_path):
+    """run_affinity_eval_batched over a 2 x 3-frame split: eval.read holds
+    each frame's data.points and data.voxelize spans (two clouds a frame),
+    and timings["read"] is the eval.read spans' host time."""
+    base = write_split_config(os.path.join(REPO, "configs", "nusc", "car.py"), {},
+                              str(tmp_path / "base.py"), max_objects=6,
+                              model=dict(SMALL, pc_start=(-12.0, -12.0), voxel_size=(0.3, 0.3)),
+                              point_pipeline=dict(voxel_size=(0.3, 0.3, 0.2),
+                                                  pc_range=(-12.0, -12.0, -5.0, 12.0, 12.0, 3.0),
+                                                  max_voxels=2000, nsweeps=2))
+    sp_ = write_track_split(str(tmp_path / "data"), Config.fromfile(base), n_scenes=2,
+                            n_frames=3, seed=4, n_objects=6, n_points=3000, n_spots=800)
+    cfg = Config.fromfile(write_split_config(base, sp_["val"], str(tmp_path / "split.py")))
+    model = build_model(cfg, "cpu")
+    timings: dict = {}
+    with _cpu_profile() as prof:
+        annos = run_affinity_eval_batched(model, build_dataset(cfg, "val"), batch=2,
+                                          timings=timings)
+    frames = len(annos["results"])
+    assert frames == 6
+    read = _spans(prof, "eval.read")
+    for name in ("data.points", "data.voxelize", "data.dets"):
+        assert _inside(_spans(prof, name), read), name
+    assert len(_spans(prof, "data.voxelize")) == len(_spans(prof, "data.points")) == 2 * frames
+    assert len(_spans(prof, "eval.step")) >= 1 and len(_spans(prof, "eval.assemble")) >= 1
+    span_s = sum(e - s for s, e in read) * 1e-6
+    assert abs(span_s - timings["read"]) <= 0.05 * timings["read"], (span_s, timings)
+    assert _inside(_spans(prof, "step.upload"), _spans(prof, "eval.step"))
+
+
+def test_step_frame_spans_its_upload_and_the_fetch():
+    cfg = ShastaConfig(**SMALL)
+    pipe = ScenePipeline(ShastaModel(cfg, device="cpu"), cls_id=0)
+    f = make_batch(cfg, num_voxels_cap=VOXELS, n_dets=4, seed=1)
+    frame = {k: f[k] for k in ("voxels", "num_points", "coordinates", "voxels_valid",
+                               "det_boxes")}
+    with _cpu_profile() as prof:
+        out = pipe.step_frame(frame, 4, 0.5)
+    assert len(_spans(prof, "step.frame")) == len(_spans(prof, "step.upload")) == 1
+    assert _inside(_spans(prof, "step.upload"), _spans(prof, "step.frame"))
+    assert _inside(_spans(prof, "step.sparse_trunk"), _spans(prof, "step.frame"))
+    assert _spans(prof, "step.fetch") == []
+    with _cpu_profile() as prof:
+        out.tid, out.used  # noqa: B018: the first field read fetches, the second reuses
+    assert len(_spans(prof, "step.fetch")) == 1

@@ -5,7 +5,7 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build all five CUDA kernels from shasta_tpu_torch/csrc (one nvcc per
+  2. build all six CUDA kernels from shasta_tpu_torch/csrc (one nvcc per
      source, in parallel);
   3. hold rulebook_conv and keyed_conv against their plain PyTorch
      versions on the card at the B=1 step's shapes (bench-scale frame:
@@ -175,15 +175,23 @@ Phases (any failure ends the run with a non-zero exit code):
      range and voxel (cap 120k, and one case that overflows), DeformConv2d
      64 -> 64 at 1 x 180 x 180 (modulated and not) and deform_psroi_pooling
      (128 rois on 2 x 180 x 180 x 490, forward and gradients), each cuda
-     against cpu; a profiler trace of one BEVMap forward holds its span and
-     the gather_conv launches, StageTimer waits for the card and
-     cost_analysis counts a 1024^3 matmul.
+     against cpu; a profiler trace of one BEVMap forward, after another
+     forward, holds its span and the 21 gather_conv kernels launched in
+     it (matched to their launches by correlation id), StageTimer waits
+     for the card and cost_analysis counts a 1024^3 matmul;
+  21. the neck's conv kernel (phase_neck): dense_conv at the car neck's
+     shapes (256 x 180 x 180 in, B=1 and B=8, f32): each of the 15 convs and
+     the whole neck against the plain version (1e-4 x max(1, |out|)), 15
+     launches a neck call, and the time of each conv and of the neck beside
+     its bound, the plain version and cuDNN's F.conv2d (TF32 off).
 With --before CSRC, every f32 path's convs are also timed on gather_conv
 built from that directory (a redesign's parent), in turns with this build.
 The line before the last is {"kernels": [...]} (launches per main path
 from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16, 17, 18, 19
-and 20, each counted from 0 just before it; times from phases 3-3d, 8, 15-18
-and 20);
+and 20, each counted from 0 just before it, dense_conv's among them: 15 a
+frame, step, pair or batch on the f32 paths of phases 15-19, 14 a train
+step and a BEVMap frame, 0 on the bf16 steps; times from phases 3-3d, 8,
+15-18, 20 and 21);
 the last is {"ok": true, "device": {...}}. Imports nothing of JAX or of the
 JAX package.
 """
@@ -208,6 +216,10 @@ SMALL_CLASSES = {"car": 10, "pedestrian": 8, "bus": 6}
 PROBE_ITERS = 20
 PROFILE_FRAMES = 5
 CHUNK_T = 4
+# dense_conv launches of an f32 neck + shared conv on the card: the RPN's 12
+# convs and 2 deblocks, the shared conv (one fewer where the shared conv
+# trains, on cuDNN, or is absent, as in BEVMap); the bf16 steps launch none
+NECK_CONVS = 15
 # caps of the two-frame forward's pair (bench frames of seeds 0 and 1): its
 # sets, 714835/942028/316660/129521, kept whole, so each frame's map is the
 # map of that frame alone (the bench caps 50k/25k/12k/12k per frame keep a
@@ -606,7 +618,8 @@ def phase_multiclass(pipe, frame, class_boxes, counted, n_frames):
           f"classes at {[round(x, 3) for x in runs]} frames/s (median {fps:.3f}); "
           f"launches {launches}")
     check(launches == {"rulebook_conv": 11 * n_frames, "keyed_conv": 10 * n_frames,
-                       "sorted_lookup": 0, "gather_conv": 0, "block_extract": 0},
+                       "sorted_lookup": 0, "gather_conv": 0, "block_extract": 0,
+                       "dense_conv": 0},
           f"expected 11 + 10 trunk launches per multi-class frame, got {launches}")
     C, N = len(pipe.max_obj), pipe.n_max
     with torch.no_grad():
@@ -1041,9 +1054,9 @@ def phase_serving(kernels, smi):
     args = ["--config", cfg_paths["car"], "--checkpoint", ckpts["car"], "--out", out]
     result, launches = counted(kernels, lambda: track_scene.main(args))
     want = {k.__name__: 0 for k in kernels}
-    want.update(sorted_lookup=12 * n, gather_conv=21 * n)
-    check(launches == want, f"serving CLI: expected 12 sorted_lookup + 21 gather_conv "
-                            f"launches per frame, got {launches}")
+    want.update(sorted_lookup=12 * n, gather_conv=21 * n, dense_conv=NECK_CONVS * n)
+    check(launches == want, f"serving CLI: expected 12 sorted_lookup + 21 gather_conv + "
+                            f"{NECK_CONVS} dense_conv launches per frame, got {launches}")
     with open(out) as f:
         check(json.load(f) == result, "serving CLI: the file differs from the result")
     check(list(result["results"]) == sp["tokens"], "serving CLI: tokens out of order")
@@ -1083,7 +1096,8 @@ def phase_serving(kernels, smi):
     mc, launches_mc = counted(kernels, lambda: track_multiclass.main(
         ["--classes", "car,pedestrian", "--config_dir", root, "--checkpoints",
          os.path.join(root, "{cls}.pth"), "--out", out_mc]))
-    check(launches_mc == want, f"multi-class CLI: expected 12 + 21 launches per frame, "
+    check(launches_mc == want, f"multi-class CLI: expected 12 + 21 + {NECK_CONVS} launches "
+                               f"per frame (one trunk for both classes), "
                                f"got {launches_mc}")
     names = {a["tracking_name"] for v in mc["results"].values() for a in v}
     check(list(mc["results"]) == sp["tokens"] and names <= {"car", "pedestrian"} and names,
@@ -1217,9 +1231,10 @@ def phase_eval(kernels, smi):
             "--batch", str(EVAL_LANES)]
     annos, launches = counted(kernels, lambda: eval_cli.main(args))
     want = {k.__name__: 0 for k in kernels}
-    want.update(sorted_lookup=12 * steps, gather_conv=21 * steps)
-    check(launches == want, f"eval CLI: expected 12 sorted_lookup + 21 gather_conv launches "
-                            f"per {EVAL_LANES}-lane step, got {launches}")
+    want.update(sorted_lookup=12 * steps, gather_conv=21 * steps, dense_conv=NECK_CONVS * steps)
+    check(launches == want, f"eval CLI: expected 12 sorted_lookup + 21 gather_conv + "
+                            f"{NECK_CONVS} dense_conv launches per {EVAL_LANES}-lane step, got "
+                            f"{launches}")
     cp_path = os.path.join(wd, "cp_val.json")
     with open(cp_path) as f:
         check(json.load(f) == annos, "eval CLI: cp_val.json differs from the result")
@@ -1266,8 +1281,10 @@ def phase_eval(kernels, smi):
         ["--config", first_cfg, "--checkpoint", ckpt, "--work_dir", os.path.join(root, "parity"),
          "--parity"]))
     want_par = {k.__name__: 0 for k in kernels}
-    want_par.update(sorted_lookup=12 * EVAL_FRAMES, gather_conv=21 * EVAL_FRAMES)
-    check(launches_par == want_par, f"eval CLI --parity: expected 12 + 21 launches per pair, "
+    want_par.update(sorted_lookup=12 * EVAL_FRAMES, gather_conv=21 * EVAL_FRAMES,
+                    dense_conv=NECK_CONVS * EVAL_FRAMES)
+    check(launches_par == want_par, f"eval CLI --parity: expected 12 + 21 + {NECK_CONVS} "
+                                    f"launches per pair, "
                                     f"got {launches_par}")
     check(list(par["results"]) == sp["tokens"][:EVAL_FRAMES]
           and all(np.isfinite(a["ref_detection_score"]) for v in par["results"].values()
@@ -1462,9 +1479,11 @@ def phase_training(kernels, smi):
     args = ["--config", cfg_path, "--checkpoint", ckpt, "--work_dir", wd, "--epochs", "1"]
     out, launches = counted(kernels, lambda: train.main(args))
     want = {k.__name__: 0 for k in kernels}
-    want.update(sorted_lookup=12 * steps, gather_conv=21 * steps)
-    check(launches == want, f"train CLI: expected 12 sorted_lookup + 21 gather_conv launches "
-                            f"per step, got {launches} for {steps} steps")
+    want.update(sorted_lookup=12 * steps, gather_conv=21 * steps,
+                dense_conv=(NECK_CONVS - 1) * steps)
+    check(launches == want, f"train CLI: expected 12 sorted_lookup + 21 gather_conv + "
+                            f"{NECK_CONVS - 1} dense_conv launches per step (the shared conv "
+                            f"trains on cuDNN), got {launches} for {steps} steps")
     losses = out["losses"][0]
     check(len(losses) == steps and all(np.isfinite(losses)), f"train CLI: losses {losses}")
     with open(os.path.join(wd, "train_log.jsonl")) as f:
@@ -1547,9 +1566,10 @@ def phase_training(kernels, smi):
          "--batch", str(TRAIN_BATCH)]))
     nb = -(-n // TRAIN_BATCH)
     want_c = {k.__name__: 0 for k in kernels}
-    want_c.update(sorted_lookup=12 * nb, gather_conv=21 * nb)
+    want_c.update(sorted_lookup=12 * nb, gather_conv=21 * nb, dense_conv=NECK_CONVS * nb)
     check(launches_c == want_c and res["batches"] == nb,
-          f"cache_features: expected 12 + 21 launches per batch of {TRAIN_BATCH}, got "
+          f"cache_features: expected 12 + 21 + {NECK_CONVS} launches per batch of "
+          f"{TRAIN_BATCH}, got "
           f"{launches_c}")
     check(sorted(os.listdir(cache)) == sorted(t + ".npz" for t in sp["tokens"]),
           "cache_features: a token's file is missing")
@@ -1865,9 +1885,11 @@ def phase_chain(kernels, smi):
         ["--config", cfg_path, "--checkpoint", ckpt, "--out", os.path.join(root, "track.json")])))
     serve_fps = n_serve / stage_s["track_scene"]
     want = {k.__name__: 0 for k in kernels}
-    want.update(sorted_lookup=12 * n_serve, gather_conv=21 * n_serve)
+    want.update(sorted_lookup=12 * n_serve, gather_conv=21 * n_serve,
+                dense_conv=NECK_CONVS * n_serve)
     check(launches == want, f"track_scene over the chain's tree: expected 12 sorted_lookup + 21 "
-                            f"gather_conv launches per frame, got {launches}")
+                            f"gather_conv + {NECK_CONVS} dense_conv launches per frame, got "
+                            f"{launches}")
     check(list(result["results"]) == [i["token"] for i in infos[:n_serve]],
           "track_scene over the chain's tree: tokens out of order")
     annos = [a for v in result["results"].values() for a in v]
@@ -2124,9 +2146,10 @@ def phase_waymo(kernels, smi):
         args + (["--render", png] if have_mpl else [])))
     serve_s = time.perf_counter() - t0
     want = {k.__name__: 0 for k in kernels}
-    want.update(sorted_lookup=12 * SERVE_FRAMES, gather_conv=21 * SERVE_FRAMES)
+    want.update(sorted_lookup=12 * SERVE_FRAMES, gather_conv=21 * SERVE_FRAMES,
+                dense_conv=NECK_CONVS * SERVE_FRAMES)
     check(launches == want, f"track_scene --render: expected 12 sorted_lookup + 21 gather_conv "
-                            f"launches per frame, got {launches}")
+                            f"+ {NECK_CONVS} dense_conv launches per frame, got {launches}")
     check(list(result["results"]) == sp["tokens"], "track_scene --render: tokens out of order")
     render = {}
     if have_mpl:
@@ -2206,8 +2229,8 @@ def phase_zoo(kernels, smi):
     at configs/nusc/car.py's full width (f32, caps 100k/50k/25k/25k) from a
     trunk-only bev_map.pth (a random numpy tree through load_jax_variables,
     save_checkpoint, load_checkpoint, a strict load): one bench frame
-    (V=120k, no plans) launches 12 sorted_lookup + 21 gather_conv and
-    nothing else, the (1, 180, 180, 512) map is finite, the same tree's
+    (V=120k, no plans) launches 12 sorted_lookup + 21 gather_conv + 14
+    dense_conv and nothing else, the (1, 180, 180, 512) map is finite, the same tree's
     shared conv on it equals ShastaModel.bev_single, the path's lookups and
     convs hold against their plain versions (phase_gather_kernels), and its
     forward is timed. Then, cuda against cpu on the same weights and inputs:
@@ -2217,8 +2240,8 @@ def phase_zoo(kernels, smi):
     and valid exact, means 1e-5; one case overflows), DeformConv2d 64 -> 64
     at 1 x 180 x 180, modulated and not (1e-4), deform_psroi_pooling forward
     and its gradients with and without trans (1e-5, counts exact); and the
-    profiler: a trace of one BEVMap forward holds its annotate span and a
-    gather_conv launch, StageTimer waits for the card, cost_analysis counts
+    profiler: a trace of two BEVMap forwards holds the second's annotate
+    span and the 21 gather_conv kernels launched in it, StageTimer waits for the card, cost_analysis counts
     a 1024^3 matmul. Returns (launches, the path's kernel records, numbers)."""
     import shutil
 
@@ -2270,9 +2293,9 @@ def phase_zoo(kernels, smi):
         bev(frame)  # warm-up
         bmap, launches = counted(kernels, lambda: bev(frame))
         want = {k.__name__: 0 for k in kernels}
-        want.update(sorted_lookup=12, gather_conv=21)
-        check(launches == want, f"BEVMap: expected 12 sorted_lookup + 21 gather_conv, got "
-                                f"{launches}")
+        want.update(sorted_lookup=12, gather_conv=21, dense_conv=NECK_CONVS - 1)
+        check(launches == want, f"BEVMap: expected 12 sorted_lookup + 21 gather_conv + "
+                                f"{NECK_CONVS - 1} dense_conv (no shared conv), got {launches}")
         check(tuple(bmap.shape) == (1, 180, 180, 512) and bool(torch.isfinite(bmap).all()),
               f"BEVMap: map {tuple(bmap.shape)}, not finite or not (1, 180, 180, 512)")
         mine = served.shared_conv(bmap.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
@@ -2420,31 +2443,44 @@ def phase_zoo(kernels, smi):
 
     # the profiler around one BEVMap forward
     prof_dir = os.path.join(root, "trace")
-    with torch.no_grad(), trace(prof_dir) as prof:
+    with torch.no_grad(), trace(prof_dir):
+        # a forward ahead of the spanned one: the window can lose its first
+        # kernels, whose stamps on the card's clock fall before it opened
+        bev(frame)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         with annotate("zoo.bevmap"):
             bev(frame)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    cuda = torch.autograd.DeviceType.CUDA
-    top = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                  if e.device_type == cuda and not e.is_user_annotation
-                  and e.self_device_time_total > 0), reverse=True)
-    busy = sum(t[0] for t in top)
-    print(f"phase 20: one profiled BEVMap forward: wall {wall:.3f} ms, device busy {busy:.3f} ms "
-          f"over {sum(t[1] for t in top)} kernels; device ms, launches, kernel:")
-    for ms, count, key in top[:6]:
-        print(f"    {ms:9.3f} {count:7d}  {key[:100]}")
     files = [os.path.join(r, f) for r, _, fs in os.walk(prof_dir) for f in fs]
     check(len(files) == 1, f"trace wrote {files}")
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
-    spans = sum(e.get("name") == "zoo.bevmap" for e in events)
+    spans = [e for e in events if e.get("name") == "zoo.bevmap"
+             and e.get("cat") == "user_annotation"]  # the host's span, not its card copy
+    check(len(spans) == 1, f"the trace holds {len(spans)} zoo.bevmap spans")
+    # the spanned forward's kernels: those whose launch lies inside the span
+    t_a, t_b = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and t_a <= e["ts"] <= t_b
+                and "correlation" in e.get("args", {})}
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in launched:
+            by_name[e["name"]][0] += e["dur"] / 1e3
+            by_name[e["name"]][1] += 1
+    top = sorted(((ms, count, key) for key, (ms, count) in by_name.items()), reverse=True)
+    busy = sum(t[0] for t in top)
+    print(f"phase 20: one profiled BEVMap forward: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"over {sum(t[1] for t in top)} kernels launched in its span ({len(launched)} runtime "
+          f"calls); device ms, launches, kernel:")
+    for ms, count, key in top[:6]:
+        print(f"    {ms:9.3f} {count:7d}  {key[:100]}")
     # gather_conv's device kernels are gather_mma.cuh's cores over its finder
-    gconv = sum(e.get("cat") == "kernel" and "GatherFind" in e.get("name", "")
-                for e in events)
-    check(spans >= 1 and gconv >= 21, f"the trace holds {spans} zoo.bevmap spans and {gconv} "
-                                      f"gather_conv kernels")
+    gconv = sum(count for _, count, key in top if "GatherFind" in key)
+    check(gconv == 21, f"the trace holds {gconv} gather_conv kernels of the spanned forward, "
+                       f"not 21")
     timer = StageTimer()
     big = torch.ones(4096, 4096, device="cuda")
     with timer.stage("matmul", block_on=big):
@@ -2464,6 +2500,138 @@ def phase_zoo(kernels, smi):
     print(f"phase 20: {nums['seconds']:.1f} s")
     shutil.rmtree(root, ignore_errors=True)
     return launches, gather, nums
+
+
+NECK_BATCHES = (1, 8)
+
+
+def random_neck(dev, seed=0):
+    """The car neck (RPN 256 -> 512 and the shared conv 512 -> 64) on `dev`
+    in eval mode: weights N(0, 1/fan_in), BN scales 1 + N(0, 0.1), shifts and
+    means N(0, 0.1), variances U(0.5, 2), biases N(0, 0.1)."""
+    import torch
+    from torch import nn
+
+    from shasta_tpu_torch.models.rpn import RPN, SharedConv
+
+    g = torch.Generator().manual_seed(seed)
+    neck, shared = RPN(), SharedConv(512, 64)
+    with torch.no_grad():
+        for m in (*neck.modules(), *shared.modules()):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                fan_in = m.weight[0].numel() if isinstance(m, nn.Conv2d) else m.weight.shape[0]
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g) / fan_in ** 0.5)
+                if m.bias is not None:
+                    m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+            elif isinstance(m, nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(1 + 0.1 * torch.randn(n, generator=g))
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_var.copy_(0.5 + 1.5 * torch.rand(n, generator=g))
+    return neck.to(dev).eval(), shared.to(dev).eval()
+
+
+def neck_convs(neck, shared, x):
+    """[(name, NHWC input, Packed, conv module)] of the neck's 15 convs in
+    launch order on x (B, 256, H, W), each input made by the plain version."""
+    import torch
+
+    from shasta_tpu_torch.models import rpn
+    from shasta_tpu_torch.ops.kernels import dense_conv as dc
+
+    out, cat, h = [], [], x.permute(0, 2, 3, 1).contiguous()
+    for i, (blk, de) in enumerate(zip(neck.blocks, neck.deblocks)):
+        for j, (conv, bn, pad) in enumerate(rpn._conv_bns(blk)):
+            p = dc.pack(conv, bn, pad)
+            out.append((f"block{i}.conv{j}", h, p, conv))
+            h = dc.dense_conv_plain(h, p)
+        (conv, bn, pad), = rpn._conv_bns(de)
+        p = dc.pack(conv, bn, pad)
+        out.append((f"deblock{i}", h, p, conv))
+        cat.append(dc.dense_conv_plain(h, p))
+    (conv, bn, pad), = rpn._conv_bns(shared)
+    out.append(("shared", torch.cat(cat, dim=3).contiguous(), dc.pack(conv, bn, pad), conv))
+    return out
+
+
+def phase_neck(smi):
+    """21. the neck's conv kernel (dense_conv) at the car neck's shapes
+    (256 x 180 x 180 in, B=1 and B=8, f32, TF32 off): each of the 15 convs
+    and the whole neck against the plain version within 1e-4 x max(1,
+    |out|), 15 launches a neck call (counted), and each conv's time beside
+    its bound (2 M K N FLOPs at 495/3 TFLOP/s), its plain version's and
+    the library's (F.conv2d or F.conv_transpose2d under cuDNN, TF32 off,
+    on the NCHW input without BN: the route the neck took before, as a
+    yardstick only); the whole neck by the kernel route and by `_run`."""
+    import torch
+    import torch.nn.functional as F
+
+    from shasta_tpu_torch.models import rpn
+    from shasta_tpu_torch.ops.kernels import dense_conv as dc
+    from shasta_tpu_torch.timing import PRODUCT_FLOPS_PER_S, median_ms
+
+    dev = torch.device("cuda")
+    neck, shared = random_neck(dev)
+    res = {"card": smi, "batches": {}}
+    for B in NECK_BATCHES:
+        x = torch.randn(B, 256, 180, 180, generator=torch.Generator().manual_seed(B)).to(dev)
+        recs = []
+        with torch.no_grad():
+            for name, h, p, conv in neck_convs(neck, shared, x):
+                want = dc.dense_conv_plain(h, p)
+                got = dc.dense_conv(h, p)
+                err = (got - want).abs().max().item()
+                scale = max(1.0, want.abs().max().item())
+                check(err <= 1e-4 * scale, f"neck B={B} {name}: max abs error {err} "
+                                           f"over 1e-4 x {scale}")
+                Ho, Wo = dc.out_grid(h, p)
+                M, N, K = B * Ho * Wo, p.w.shape[0], p.w.shape[1]
+                flops = 2.0 * M * N * K
+                xin = h.permute(0, 3, 1, 2).contiguous()
+                if isinstance(conv, torch.nn.ConvTranspose2d):
+                    lib = lambda: F.conv_transpose2d(xin, conv.weight, None, conv.stride)
+                else:
+                    lib = lambda: F.conv2d(xin, conv.weight, conv.bias, conv.stride,
+                                           p.pad)
+                recs.append(dict(
+                    name=name, M=M, N=N, K=K, tile_rows=dc.tile_rows(M, N), gflop=flops / 1e9,
+                    ms=median_ms(lambda: dc.dense_conv(h, p)),
+                    plain_ms=median_ms(lambda: dc.dense_conv_plain(h, p)),
+                    library_ms=median_ms(lib),
+                    bound_ms=flops / PRODUCT_FLOPS_PER_S["float32"] * 1e3,
+                    max_abs_err=err, scale=scale))
+                del want, got, xin
+            before = dc.dense_conv.launches
+            got = shared(neck(x))
+            launches = dc.dense_conv.launches - before
+            check(launches == NECK_CONVS, f"neck B={B}: {launches} dense_conv launches, "
+                                          f"not {NECK_CONVS}")
+            kernel_route, rpn.kernel_route = rpn.kernel_route, lambda m, t: False
+            try:
+                want = shared(neck(x))
+                run_ms = median_ms(lambda: shared(neck(x)), reps=5)
+            finally:
+                rpn.kernel_route = kernel_route
+            err = (got - want).abs().max().item()
+            scale = max(1.0, want.abs().max().item())
+            check(err <= 1e-4 * scale, f"neck B={B}: max abs error {err} over 1e-4 x {scale}")
+            neck_ms = median_ms(lambda: shared(neck(x)))
+        tot = {k: sum(r[k] for r in recs) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                    "gflop")}
+        res["batches"][B] = dict(convs=recs, launches=launches, neck_ms=neck_ms,
+                                 run_ms=run_ms, max_abs_err=err, **{"sum_" + k: v
+                                                                    for k, v in tot.items()})
+        print(f"phase 21: neck B={B}: 15 convs {tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f}, "
+              f"{tot['gflop']:.1f} GFLOP; plain {tot['plain_ms']:.4f}, cuDNN "
+              f"{tot['library_ms']:.4f}); whole neck {neck_ms:.4f} ms by the kernel route, "
+              f"{run_ms:.4f} by _run; max abs error {err:.3g} ({smi})")
+        for r in recs:
+            print(f"  {r['name']}: M {r['M']} N {r['N']} K {r['K']} BM {r['tile_rows']}: "
+                  f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+                  f"cuDNN {r['library_ms']:.4f}), err {r['max_abs_err']:.3g}")
+        del x, got, want
+    return res
 
 
 def bound_of(rec) -> tuple[float, str]:
@@ -2500,8 +2668,8 @@ def main(argv=None) -> int:
     from shasta_tpu_torch.data.synthetic import make_batch
     from shasta_tpu_torch.infer import FRAME_KEYS, BatchedScenePipeline, ScenePipeline
     from shasta_tpu_torch.models import ShastaConfig, ShastaModel
-    from shasta_tpu_torch.ops.kernels import (block_conv, block_extract, build, gather_conv,
-                                              lookup, window_conv)
+    from shasta_tpu_torch.ops.kernels import (block_conv, block_extract, build, dense_conv,
+                                              gather_conv, lookup, window_conv)
     from shasta_tpu_torch.plans import attach_plans, frame_plans
     from shasta_tpu_torch.profile_step import (CAR, bench_frame, car_setup, multiclass_setup,
                                                without_plans)
@@ -2534,7 +2702,7 @@ def main(argv=None) -> int:
         print(f"phase 2: built gather_conv from {args.before} (--before) in "
               f"{time.perf_counter() - t0:.1f} s")
     kernels = (block_conv.rulebook_conv, window_conv.keyed_conv, lookup.sorted_lookup,
-               gather_conv.gather_conv, block_extract.block_extract)
+               gather_conv.gather_conv, block_extract.block_extract, dense_conv.dense_conv)
     path_launches = {}  # main path -> {kernel: launches in its run}
 
     # bench-scale frame, its host plans and the bf16 model (bench.py:39-41,121-148)
@@ -2761,6 +2929,9 @@ def main(argv=None) -> int:
     # 20. the model zoo, the registry and the profiler
     path_launches[f"20: {ZOO_LABEL}"], gather_paths[ZOO_LABEL], zoo = phase_zoo(kernels, smi)
 
+    # 21. the neck's conv kernel
+    neck = phase_neck(smi)
+
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
                              "shasta_tpu/ops/pallas/block_conv.py:117", "B=1 frame with plans"),
            "keyed_conv": ("shasta_tpu_torch/csrc/window_conv.cu",
@@ -2810,6 +2981,18 @@ def main(argv=None) -> int:
                 entry["paths"][label].update(
                     {k: r[k] for k in ("dtype", "bf16_ms", "before_ms") if k in r})
         out_kernels.append(entry)
+    by_path = {p: n["dense_conv"] for p, n in path_launches.items() if n["dense_conv"]}
+    out_kernels.append({
+        "name": "dense_conv", "route": "cuda", "source": "shasta_tpu_torch/csrc/dense_conv.cu",
+        "replaces": "none: XLA convs in the JAX package", "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "per": "one neck call (the sum over its 15 convs, each the median of 10 "
+               "CUDA-event-timed launches), f32; library: F.conv2d / F.conv_transpose2d "
+               "under cuDNN, TF32 off, without BN",
+        "batches": {B: {k: r[k] for k in ("launches", "sum_ms", "sum_bound_ms", "sum_plain_ms",
+                                           "sum_library_ms", "neck_ms", "run_ms",
+                                           "max_abs_err")}
+                    for B, r in neck["batches"].items()}})
     print(json.dumps({"frames_per_s": fps, "frames_per_s_runs": fps_runs,
                       "b1_no_plans_frames_per_s": fps_nop,
                       "b1_no_plans_frames_per_s_runs": fps_nop_runs,
@@ -2818,7 +3001,7 @@ def main(argv=None) -> int:
                       "classes7_frames_per_s": fps7, "classes7_frames_per_s_runs": fps7_runs,
                       "classes7_peak_device_gib": peak_gb, "serving": serving,
                       "eval_flow": eval_flow, "training": training, "chain": chain,
-                      "waymo": waymo, "zoo": zoo,
+                      "waymo": waymo, "zoo": zoo, "neck": neck,
                       "card": smi, "host": host,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out_kernels}))

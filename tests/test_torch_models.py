@@ -120,6 +120,30 @@ def test_neck_and_shared_conv_match(small, rng):
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
+@pytest.mark.parametrize("shape", [(1, 12, 12), (2, 10, 14)])
+def test_neck_and_shared_conv_match_on_the_kernel_route(small, rng, monkeypatch, shape):
+    """The route that f32 inference takes on the card (models/rpn.py
+    `kernel_route`: packed weights, BN folded to scale and shift, NHWC maps,
+    the deconv as a GEMM with a 2x2 store, both deblocks in one buffer),
+    forced on the CPU, where dense_conv runs its plain version, against
+    the JAX neck and shared conv; the second shape's half grid is odd."""
+    from shasta_tpu_torch.models import rpn
+    from shasta_tpu_torch.ops.kernels import dense_conv
+
+    model, variables = small
+    monkeypatch.setattr(rpn, "kernel_route", rpn.fusable)
+    x = rng.normal(size=(*shape, 256)).astype(np.float32)
+    neck = JRPN().apply(_sub(variables, "neck"), jnp.asarray(x))
+    want = np.asarray(JShared(64).apply(_sub(variables, "shared_conv"), neck))
+    before = dense_conv.dense_conv.launches
+    with torch.no_grad():
+        t = torch.from_numpy(x).permute(0, 3, 1, 2)
+        got = model.shared_conv(model.neck(t))
+    assert got.permute(0, 2, 3, 1).is_contiguous()  # the kernel route's NHWC storage
+    assert dense_conv.dense_conv.launches == before  # the CPU runs the plain version
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=1e-4)
+
+
 @pytest.mark.parametrize("n_real", [None, 7])
 def test_affinity_matches(small, rng, n_real):
     model, variables = small

@@ -180,18 +180,25 @@ Phases (any failure ends the run with a non-zero exit code):
      it (matched to their launches by correlation id), StageTimer waits
      for the card and cost_analysis counts a 1024^3 matmul;
   21. the neck's conv kernel (phase_neck): dense_conv at the car neck's
-     shapes (256 x 180 x 180 in, B=1 and B=8, f32): each of the 15 convs and
-     the whole neck against the plain version (1e-4 x max(1, |out|)), 15
-     launches a neck call, and the time of each conv and of the neck beside
-     its bound, the plain version and cuDNN's F.conv2d (TF32 off).
+     shapes (256 x 180 x 180 in, B=1 and B=8, f32) and at the pillar
+     neck's (the published 64 x 512 x 512 canvas, B=1): each of the 15 and
+     20 convs and the whole neck against the plain version (1e-4 x max(1,
+     |out|)), 15 and 20 launches a neck call, and the time of each conv and
+     of the neck beside its bound, the plain version and cuDNN's F.conv2d
+     (TF32 off);
+  22. the pillar trunk served (phase_pillars): configs/nusc/pp/car.py over
+     a 2 x 6-frame split at 60,000 x 20 pillar slots through
+     tools.track_scene, 20 dense_conv launches a frame and nothing else
+     (counted), its map by the kernel route against `_run`, one traced
+     frame's spans, counters and the kernels under step.neck, frames/s.
 With --before CSRC, every f32 path's convs are also timed on gather_conv
 built from that directory (a redesign's parent), in turns with this build.
 The line before the last is {"kernels": [...]} (launches per main path
-from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16, 17, 18, 19
-and 20, each counted from 0 just before it, dense_conv's among them: 15 a
-frame, step, pair or batch on the f32 paths of phases 15-19, 14 a train
-step and a BEVMap frame, 0 on the bf16 steps; times from phases 3-3d, 8,
-15-18, 20 and 21);
+from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16, 17, 18,
+19, 20 and 22, each counted from 0 just before it, dense_conv's among
+them: 15 a frame, step, pair or batch on the f32 paths of phases 15-19, 14
+a train step and a BEVMap frame, 20 a pillar frame, 0 on the bf16 steps;
+times from phases 3-3d, 8, 15-18, 20 and 21);
 the last is {"ok": true, "device": {...}}. Imports nothing of JAX or of the
 JAX package.
 """
@@ -2503,19 +2510,41 @@ def phase_zoo(kernels, smi):
 
 
 NECK_BATCHES = (1, 8)
+# the pillar trunk (CenterPoint-PP under ShaSTA's car head) as the
+# benchmark's configuration shasta-car-pp runs it: its neck takes a 64 x
+# 512 x 512 canvas, 20 dense_conv launches a frame (the RPN's 16 convs and
+# 3 deblocks, the shared conv 384 -> 64)
+PILLAR_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "trackbench",
+                             "configs", "shasta-car-pp.json")
+PILLAR_CONVS = 20
 
 
-def random_neck(dev, seed=0):
-    """The car neck (RPN 256 -> 512 and the shared conv 512 -> 64) on `dev`
-    in eval mode: weights N(0, 1/fan_in), BN scales 1 + N(0, 0.1), shifts and
-    means N(0, 0.1), variances U(0.5, 2), biases N(0, 0.1)."""
+def pillar_model() -> dict:
+    """The model keys of the benchmark's pillar configuration."""
+    with open(PILLAR_CONFIG) as f:
+        return json.load(f)["model"]
+
+
+def pillar_neck_dims(m: dict) -> dict:
+    """RPN's keyword arguments at the pillar configuration's neck."""
+    return dict(layer_nums=m["layer_nums"], ds_layer_strides=m["ds_layer_strides"],
+                ds_num_filters=m["ds_num_filters"], us_layer_strides=m["us_layer_strides"],
+                us_num_filters=m["us_num_filters"], num_input_features=m["neck_input_features"])
+
+
+def random_neck(dev, seed=0, dims=None):
+    """A neck, RPN(**dims) (default the car neck, RPN 256 -> 512), and its
+    shared conv (the deblocks' channels -> 64) on `dev` in eval mode:
+    weights N(0, 1/fan_in), BN scales 1 + N(0, 0.1), shifts and means N(0,
+    0.1), variances U(0.5, 2), biases N(0, 0.1)."""
     import torch
     from torch import nn
 
     from shasta_tpu_torch.models.rpn import RPN, SharedConv
 
     g = torch.Generator().manual_seed(seed)
-    neck, shared = RPN(), SharedConv(512, 64)
+    neck = RPN(**(dims or {}))
+    shared = SharedConv(sum(d[0].out_channels for d in neck.deblocks), 64)
     with torch.no_grad():
         for m in (*neck.modules(), *shared.modules()):
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
@@ -2533,8 +2562,8 @@ def random_neck(dev, seed=0):
 
 
 def neck_convs(neck, shared, x):
-    """[(name, NHWC input, Packed, conv module)] of the neck's 15 convs in
-    launch order on x (B, 256, H, W), each input made by the plain version."""
+    """[(name, NHWC input, Packed, conv module)] of the neck's convs in
+    launch order on x (B, Cin, H, W), each input made by the plain version."""
     import torch
 
     from shasta_tpu_torch.models import rpn
@@ -2556,82 +2585,263 @@ def neck_convs(neck, shared, x):
 
 
 def phase_neck(smi):
-    """21. the neck's conv kernel (dense_conv) at the car neck's shapes
-    (256 x 180 x 180 in, B=1 and B=8, f32, TF32 off): each of the 15 convs
-    and the whole neck against the plain version within 1e-4 x max(1,
-    |out|), 15 launches a neck call (counted), and each conv's time beside
-    its bound (2 M K N FLOPs at 495/3 TFLOP/s), its plain version's and
-    the library's (F.conv2d or F.conv_transpose2d under cuDNN, TF32 off,
-    on the NCHW input without BN: the route the neck took before, as a
-    yardstick only); the whole neck by the kernel route and by `_run`."""
+    """21. the neck's conv kernel (dense_conv) at two necks' shapes, f32,
+    TF32 off: the car neck (256 x 180 x 180 in, B=1 and B=8, 15 convs) and
+    the pillar neck (the published 64 x 512 x 512 canvas, B=1, 20 convs:
+    64-channel 3x3 convs over 256 x 256, the 2x2 stride-2 deblock, the
+    shared conv 384 -> 64 at 128 x 128). Each conv and the whole neck
+    against the plain version within 1e-4 x max(1, |out|), the launches of
+    a neck call (counted), and each conv's time beside its bound (the car
+    neck: 2 M K N FLOPs at 495/3 TFLOP/s; the pillar neck:
+    trackbench/count/pillars.py's, its FLOPs at that rate or its bytes at
+    HBM's, the larger), its plain version's and the library's (F.conv2d or
+    F.conv_transpose2d under cuDNN, TF32 off, on the NCHW input without
+    BN: the route the neck took before, as a yardstick only); the whole
+    neck by the kernel route and by `_run`."""
     import torch
     import torch.nn.functional as F
 
     from shasta_tpu_torch.models import rpn
     from shasta_tpu_torch.ops.kernels import dense_conv as dc
     from shasta_tpu_torch.timing import PRODUCT_FLOPS_PER_S, median_ms
+    from trackbench.count import pillars as cp
 
     dev = torch.device("cuda")
-    neck, shared = random_neck(dev)
-    res = {"card": smi, "batches": {}}
-    for B in NECK_BATCHES:
-        x = torch.randn(B, 256, 180, 180, generator=torch.Generator().manual_seed(B)).to(dev)
-        recs = []
-        with torch.no_grad():
-            for name, h, p, conv in neck_convs(neck, shared, x):
-                want = dc.dense_conv_plain(h, p)
-                got = dc.dense_conv(h, p)
+    m = pillar_model()
+    res = {"card": smi}
+    for label, (neck, shared), shape, batches, n_convs, bounds in (
+            ("car", random_neck(dev), (256, 180, 180), NECK_BATCHES, NECK_CONVS, None),
+            ("pillars", random_neck(dev, 1, pillar_neck_dims(m)),
+             (m["neck_input_features"], *m["grid_shape"][1:]), (1,), PILLAR_CONVS,
+             {c["name"]: cp.conv_least_s(c) * 1e3 for c in cp.neck_convs(m)})):
+        res[label] = {}
+        for B in batches:
+            x = torch.randn(B, *shape, generator=torch.Generator().manual_seed(B))
+            if bounds:  # a pillar canvas holds the reader's ReLU outputs
+                x = torch.relu(x)
+            x = x.to(dev)
+            recs = []
+            with torch.no_grad():
+                convs = neck_convs(neck, shared, x)
+                check(len(convs) == n_convs, f"{label} neck: {len(convs)} convs, not {n_convs}")
+                for name, h, p, conv in convs:
+                    want = dc.dense_conv_plain(h, p)
+                    got = dc.dense_conv(h, p)
+                    err = (got - want).abs().max().item()
+                    scale = max(1.0, want.abs().max().item())
+                    check(err <= 1e-4 * scale, f"{label} neck B={B} {name}: max abs error "
+                                               f"{err} over 1e-4 x {scale}")
+                    Ho, Wo = dc.out_grid(h, p)
+                    M, N, K = B * Ho * Wo, p.w.shape[0], p.w.shape[1]
+                    flops = 2.0 * M * N * K
+                    xin = h.permute(0, 3, 1, 2).contiguous()
+                    if isinstance(conv, torch.nn.ConvTranspose2d):
+                        lib = lambda: F.conv_transpose2d(xin, conv.weight, None, conv.stride)
+                    else:
+                        lib = lambda: F.conv2d(xin, conv.weight, conv.bias, conv.stride,
+                                               p.pad)
+                    recs.append(dict(
+                        name=name, M=M, N=N, K=K, tile_rows=dc.tile_rows(M, N),
+                        gflop=flops / 1e9, ms=median_ms(lambda: dc.dense_conv(h, p)),
+                        plain_ms=median_ms(lambda: dc.dense_conv_plain(h, p)),
+                        library_ms=median_ms(lib),
+                        bound_ms=(bounds[name] if bounds
+                                  else flops / PRODUCT_FLOPS_PER_S["float32"] * 1e3),
+                        max_abs_err=err, scale=scale))
+                    del want, got, xin
+                del convs
+                before = dc.dense_conv.launches
+                got = shared(neck(x))
+                launches = dc.dense_conv.launches - before
+                check(launches == n_convs, f"{label} neck B={B}: {launches} dense_conv "
+                                           f"launches, not {n_convs}")
+                kernel_route, rpn.kernel_route = rpn.kernel_route, lambda m, t: False
+                try:
+                    want = shared(neck(x))
+                    run_ms = median_ms(lambda: shared(neck(x)), reps=5)
+                finally:
+                    rpn.kernel_route = kernel_route
                 err = (got - want).abs().max().item()
                 scale = max(1.0, want.abs().max().item())
-                check(err <= 1e-4 * scale, f"neck B={B} {name}: max abs error {err} "
-                                           f"over 1e-4 x {scale}")
-                Ho, Wo = dc.out_grid(h, p)
-                M, N, K = B * Ho * Wo, p.w.shape[0], p.w.shape[1]
-                flops = 2.0 * M * N * K
-                xin = h.permute(0, 3, 1, 2).contiguous()
-                if isinstance(conv, torch.nn.ConvTranspose2d):
-                    lib = lambda: F.conv_transpose2d(xin, conv.weight, None, conv.stride)
-                else:
-                    lib = lambda: F.conv2d(xin, conv.weight, conv.bias, conv.stride,
-                                           p.pad)
-                recs.append(dict(
-                    name=name, M=M, N=N, K=K, tile_rows=dc.tile_rows(M, N), gflop=flops / 1e9,
-                    ms=median_ms(lambda: dc.dense_conv(h, p)),
-                    plain_ms=median_ms(lambda: dc.dense_conv_plain(h, p)),
-                    library_ms=median_ms(lib),
-                    bound_ms=flops / PRODUCT_FLOPS_PER_S["float32"] * 1e3,
-                    max_abs_err=err, scale=scale))
-                del want, got, xin
-            before = dc.dense_conv.launches
-            got = shared(neck(x))
-            launches = dc.dense_conv.launches - before
-            check(launches == NECK_CONVS, f"neck B={B}: {launches} dense_conv launches, "
-                                          f"not {NECK_CONVS}")
-            kernel_route, rpn.kernel_route = rpn.kernel_route, lambda m, t: False
-            try:
-                want = shared(neck(x))
-                run_ms = median_ms(lambda: shared(neck(x)), reps=5)
-            finally:
-                rpn.kernel_route = kernel_route
-            err = (got - want).abs().max().item()
-            scale = max(1.0, want.abs().max().item())
-            check(err <= 1e-4 * scale, f"neck B={B}: max abs error {err} over 1e-4 x {scale}")
-            neck_ms = median_ms(lambda: shared(neck(x)))
-        tot = {k: sum(r[k] for r in recs) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                    "gflop")}
-        res["batches"][B] = dict(convs=recs, launches=launches, neck_ms=neck_ms,
-                                 run_ms=run_ms, max_abs_err=err, **{"sum_" + k: v
-                                                                    for k, v in tot.items()})
-        print(f"phase 21: neck B={B}: 15 convs {tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f}, "
-              f"{tot['gflop']:.1f} GFLOP; plain {tot['plain_ms']:.4f}, cuDNN "
-              f"{tot['library_ms']:.4f}); whole neck {neck_ms:.4f} ms by the kernel route, "
-              f"{run_ms:.4f} by _run; max abs error {err:.3g} ({smi})")
-        for r in recs:
-            print(f"  {r['name']}: M {r['M']} N {r['N']} K {r['K']} BM {r['tile_rows']}: "
-                  f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, "
-                  f"cuDNN {r['library_ms']:.4f}), err {r['max_abs_err']:.3g}")
-        del x, got, want
+                check(err <= 1e-4 * scale, f"{label} neck B={B}: max abs error {err} over "
+                                           f"1e-4 x {scale}")
+                neck_ms = median_ms(lambda: shared(neck(x)))
+            tot = {k: sum(r[k] for r in recs) for k in ("ms", "plain_ms", "library_ms",
+                                                        "bound_ms", "gflop")}
+            res[label][B] = dict(convs=recs, launches=launches, neck_ms=neck_ms, run_ms=run_ms,
+                                 max_abs_err=err, **{"sum_" + k: v for k, v in tot.items()})
+            print(f"phase 21: {label} neck B={B}: {n_convs} convs {tot['ms']:.4f} ms (bound "
+                  f"{tot['bound_ms']:.4f}, {tot['gflop']:.1f} GFLOP; plain "
+                  f"{tot['plain_ms']:.4f}, cuDNN {tot['library_ms']:.4f}); whole neck "
+                  f"{neck_ms:.4f} ms by the kernel route, {run_ms:.4f} by _run; max abs error "
+                  f"{err:.3g} ({smi})")
+            for r in recs:
+                print(f"  {r['name']}: M {r['M']} N {r['N']} K {r['K']} BM {r['tile_rows']}: "
+                      f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+                      f"cuDNN {r['library_ms']:.4f}), err {r['max_abs_err']:.3g}")
+            del x, got, want
+        del neck, shared
     return res
+
+
+PILLAR_SCENES, PILLAR_FRAMES = 2, 6
+PILLAR_LABEL = "pillar trunk, track_scene"
+
+
+def phase_pillars(kernels, smi):
+    """22. the pillar trunk served: configs/nusc/pp/car.py (CenterPoint-PP's
+    reader, scatter and three-block neck at published widths, under
+    ShaSTA's car head and tracker) over a synthetic split, each frame
+    voxelized by the config's point pipeline into 60,000 x 20 pillar
+    slots, through tools.track_scene (ScenePipeline.step_frame, f32): the
+    launches counted from 0 just before (20 dense_conv a frame and no
+    other kernel), ids carried over frames; a served frame's BEV map by
+    the kernel route against `_run` (1e-4 x max(1, |out|)); one traced
+    frame, after another: its step.pillars span inside step.trunk and no
+    step.sparse_trunk, the pillars.* and neck.kernel_convs counters, the
+    20 dense_conv kernels launched under step.neck and no library conv or
+    GEMM there; and the step's frames/s over the frames in memory.
+    Returns (launches, numbers)."""
+    import re
+    import shutil
+
+    import torch
+
+    from shasta_tpu_torch.data.synthetic import write_split_config, write_track_split
+    from shasta_tpu_torch.device import upload
+    from shasta_tpu_torch.infer import FRAME_KEYS, track_scene_dataset
+    from shasta_tpu_torch.models import rpn
+    from shasta_tpu_torch.tools import track_scene
+    from shasta_tpu_torch.tools.common import (build_dataset, build_model, build_pipeline,
+                                               load_model)
+    from shasta_tpu_torch.train.checkpoint import save_checkpoint
+    from shasta_tpu_torch.utils import Config, profiler
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "work_dirs", "chip_smoke_pillars")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    base = os.path.join(repo, "configs", "nusc", "pp", "car.py")
+    sp = write_track_split(os.path.join(root, "data"), Config.fromfile(base),
+                           n_scenes=PILLAR_SCENES, n_frames=PILLAR_FRAMES, seed=22)
+    cfg_path = write_split_config(base, sp["val"], os.path.join(root, "car_pp.py"))
+    cfg = Config.fromfile(cfg_path)
+    sd = build_model(cfg, "cpu", seed=22).state_dict()
+    # random heads are near uniform and fire no decision: sharpen the last layer
+    sd["aff.10.weight"] *= 10.0
+    sd["aff.10.bias"] *= 10.0
+    sd["aff.10.bias"][-2:] += 5.0
+    ckpt = os.path.join(root, "car_pp.pth")
+    save_checkpoint(ckpt, sd)
+    n = PILLAR_SCENES * PILLAR_FRAMES
+
+    # the CLI on the card, counted
+    args = ["--config", cfg_path, "--checkpoint", ckpt, "--out", os.path.join(root, "t.json")]
+    result, launches = counted(kernels, lambda: track_scene.main(args))
+    want = {k.__name__: 0 for k in kernels}
+    want["dense_conv"] = PILLAR_CONVS * n
+    check(launches == want, f"pillar trunk: expected {PILLAR_CONVS} dense_conv launches a "
+                            f"frame and no other kernel, got {launches}")
+    check(list(result["results"]) == sp["tokens"], "pillar trunk: tokens out of order")
+    ids = [{a["tracking_id"] for a in result["results"][t]} for t in sp["tokens"]]
+    carried = sum(len(a & b) for a, b in zip(ids, ids[1:]))
+    check(carried > 0, "pillar trunk: no id carried over a frame")
+    ds = build_dataset(cfg, "val")
+    samples = [ds[i] for i in range(n)]
+    kept = [int(s["voxels_valid"].sum()) for s in samples]
+    check(samples[0]["voxels"].shape == (60000, 20, 5),
+          f"pillar trunk: a frame's pillars {samples[0]['voxels'].shape}")
+    print(f"phase 22: track_scene CLI, pillar trunk on cuda: {n} frames, "
+          f"{sum(map(len, result['results'].values()))} annotations, {carried} ids carried "
+          f"over frames; launches {launches} ({launches['dense_conv'] / n:g} dense_conv a "
+          f"frame); filled pillars a frame {kept} of 60,000")
+
+    # a served frame's map by the kernel route against _run
+    pipe = build_pipeline(cfg, load_model(cfg, ckpt, "cuda"))
+    frame = {k: upload(samples[1][k][None], "cuda") for k in FRAME_KEYS}
+    with torch.no_grad():
+        got = pipe.model.bev_single(frame)
+        kernel_route, rpn.kernel_route = rpn.kernel_route, lambda m, t: False
+        try:
+            want_bev = pipe.model.bev_single(frame)
+        finally:
+            rpn.kernel_route = kernel_route
+    err = (got - want_bev).abs().max().item()
+    scale = max(1.0, want_bev.abs().max().item())
+    check(tuple(got.shape) == (1, 128, 128, 64) and err <= 1e-4 * scale,
+          f"pillar trunk: map {tuple(got.shape)}, max abs error {err} over 1e-4 x {scale}")
+    del got, want_bev, frame
+
+    # one traced frame, after another
+    def step(s):
+        pipe.step_frame({k: s[k][None] for k in FRAME_KEYS}, len(s["cls_det_boxes"]), 0.5)
+        torch.cuda.synchronize()
+
+    prof_dir = os.path.join(root, "trace")
+    profiler.reset_counters()
+    with profiler.trace(prof_dir):
+        step(samples[0])
+        step(samples[1])
+    counts = profiler.counters()
+    profiler.reset_counters()
+    check(counts.get("pillars.kept") == [kept[0] + kept[1]]
+          and counts.get("pillars.slots") == [2 * 60000]
+          and counts.get("neck.kernel_convs") == 2 * PILLAR_CONVS,
+          f"pillar trunk: counters {counts}, filled pillars {kept[:2]}")
+    files = [os.path.join(r, f) for r, _, fs in os.walk(prof_dir) for f in fs]
+    check(len(files) == 1, f"trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("step."):
+            spans[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+    check(len(spans["step.pillars"]) == 2 and not spans["step.sparse_trunk"]
+          and all(any(a <= p and q <= b for a, b in spans["step.trunk"])
+                  for p, q in spans["step.pillars"]),
+          f"pillar trunk: spans {dict(spans)}")
+
+    def kernels_in(span):  # the kernels whose launch lies inside the span
+        t_a, t_b = span
+        launched = {e["args"]["correlation"] for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver") and t_a <= e["ts"] <= t_b
+                    and "correlation" in e.get("args", {})}
+        return [(e["name"], e["dur"] / 1e3) for e in events
+                if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in launched]
+
+    in_neck = kernels_in(spans["step.neck"][-1])
+    in_pillars = kernels_in(spans["step.pillars"][-1])
+    n_dense = sum("dense_conv" in k for k, _ in in_neck)
+    library = sorted({k for k, _ in in_neck if "dense_conv" not in k
+                      and re.search("cudnn|conv|fft|gemm|gemv", k, re.I)})
+    check(n_dense == PILLAR_CONVS and not library,
+          f"pillar trunk: {n_dense} dense_conv kernels under step.neck, library {library}")
+    neck_dev_ms = sum(ms for _, ms in in_neck)
+    pillars_dev_ms = sum(ms for _, ms in in_pillars)
+    print(f"phase 22: a traced frame: step.pillars inside step.trunk, no step.sparse_trunk; "
+          f"counters {counts}; under step.neck {len(in_neck)} kernels, {n_dense} dense_conv, "
+          f"no library conv or GEMM, {neck_dev_ms:.4f} device ms; under step.pillars "
+          f"{len(in_pillars)} kernels, {pillars_dev_ms:.4f} device ms")
+
+    # the step's frames/s over the frames in memory
+    track_scene_dataset(pipe, samples)  # warm-up
+    runs = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        track_scene_dataset(pipe, samples)
+        torch.cuda.synchronize()
+        runs.append(n / (time.perf_counter() - t0))
+    fps = statistics.median(runs)
+    shutil.rmtree(root, ignore_errors=True)
+    nums = dict(frames=n, dense_conv_per_frame=launches["dense_conv"] / n, filled_pillars=kept,
+                bev_max_abs_err=err, counters=counts, neck_kernels=len(in_neck),
+                neck_dev_ms=neck_dev_ms, pillars_dev_ms=pillars_dev_ms, frames_per_s=fps,
+                frames_per_s_runs=runs, seconds=time.perf_counter() - t_phase)
+    print(f"phase 22: {TIMED_RUNS} runs of {n} frames from memory at "
+          f"{[round(x, 3) for x in runs]} frames/s (median {fps:.3f}) ({smi}); "
+          f"{nums['seconds']:.1f} s")
+    return launches, nums
 
 
 def bound_of(rec) -> tuple[float, str]:
@@ -2932,6 +3142,9 @@ def main(argv=None) -> int:
     # 21. the neck's conv kernel
     neck = phase_neck(smi)
 
+    # 22. the pillar trunk served
+    path_launches[f"22: {PILLAR_LABEL}"], pillars = phase_pillars(kernels, smi)
+
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
                              "shasta_tpu/ops/pallas/block_conv.py:117", "B=1 frame with plans"),
            "keyed_conv": ("shasta_tpu_torch/csrc/window_conv.cu",
@@ -2986,13 +3199,14 @@ def main(argv=None) -> int:
         "name": "dense_conv", "route": "cuda", "source": "shasta_tpu_torch/csrc/dense_conv.cu",
         "replaces": "none: XLA convs in the JAX package", "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "per": "one neck call (the sum over its 15 convs, each the median of 10 "
-               "CUDA-event-timed launches), f32; library: F.conv2d / F.conv_transpose2d "
-               "under cuDNN, TF32 off, without BN",
-        "batches": {B: {k: r[k] for k in ("launches", "sum_ms", "sum_bound_ms", "sum_plain_ms",
-                                           "sum_library_ms", "neck_ms", "run_ms",
-                                           "max_abs_err")}
-                    for B, r in neck["batches"].items()}})
+        "launches_a_pillar_frame": pillars["dense_conv_per_frame"],
+        "per": "one neck call (the sum over its convs, 15 of the car neck, 20 of the pillar "
+               "neck, each the median of 10 CUDA-event-timed launches), f32; library: "
+               "F.conv2d / F.conv_transpose2d under cuDNN, TF32 off, without BN",
+        **{key: {B: {k: r[k] for k in ("launches", "sum_ms", "sum_bound_ms", "sum_plain_ms",
+                                        "sum_library_ms", "neck_ms", "run_ms", "max_abs_err")}
+                 for B, r in neck[label].items()}
+           for key, label in (("batches", "car"), ("pillar_batches", "pillars"))}})
     print(json.dumps({"frames_per_s": fps, "frames_per_s_runs": fps_runs,
                       "b1_no_plans_frames_per_s": fps_nop,
                       "b1_no_plans_frames_per_s_runs": fps_nop_runs,
@@ -3001,7 +3215,7 @@ def main(argv=None) -> int:
                       "classes7_frames_per_s": fps7, "classes7_frames_per_s_runs": fps7_runs,
                       "classes7_peak_device_gib": peak_gb, "serving": serving,
                       "eval_flow": eval_flow, "training": training, "chain": chain,
-                      "waymo": waymo, "zoo": zoo, "neck": neck,
+                      "waymo": waymo, "zoo": zoo, "neck": neck, "pillars": pillars,
                       "card": smi, "host": host,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out_kernels}))

@@ -384,19 +384,20 @@ class _ClassStepOutput(StepOutput):
 
 
 class _SharedTrunk(torch.nn.Module):
-    """The trunk of one class model (backbone, neck, shared conv) on the
-    pipeline's device, without that model's affinity head: shared with the
-    model if it lies on that device, copied there otherwise."""
+    """The trunk of one class model (backbone or pillar reader, neck, shared
+    conv) on the pipeline's device, without that model's affinity head:
+    shared with the model if it lies on that device, copied there
+    otherwise."""
 
     def __init__(self, model: ShastaModel, device: torch.device):
         super().__init__()
-        self.cfg = model.cfg
-        for name in ("backbone", "neck", "shared_conv"):
+        self.cfg, self.names = model.cfg, model.trunk_names
+        for name in self.names:
             m = getattr(model, name)
             setattr(self, name, m if model.device == device else copy.deepcopy(m).to(device))
 
     def bev_single(self, frame: dict) -> torch.Tensor:
-        return trunk_bev(self.cfg, self.backbone, self.neck, self.shared_conv, frame)
+        return trunk_bev(self.cfg, *(getattr(self, n) for n in self.names), frame)
 
 
 class MultiClassScenePipeline:

@@ -18,9 +18,7 @@ from ..device import resolve_device, upload
 from ..utils.profiler import annotate
 from .backbone import SparseBackbone
 from .rpn import RPN
-from .shasta import ShastaConfig, frame_sparse
-
-VOXEL_KEYS = ("voxels", "num_points", "coordinates", "voxels_valid")
+from .shasta import VOXEL_KEYS, ShastaConfig, frame_sparse
 
 
 class BEVMap(nn.Module):

@@ -12,12 +12,24 @@ Layer names follow the JAX tree: pfn_{i} (Linear, no bias) and bn_{i}
 1e-3). In train mode the BNs take flax's batch statistics and update
 (rpn.batch_norm) over all V*P rows, the masked (zeroed) points included,
 as flax's do.
+
+Two readings of `num_filters`:
+- the JAX module's (default): every layer at its listed width, and the
+  padded point slots masked out of each max (-inf);
+- det3d's PFNLayer (`det3d=True`, CenterPoint-PP's reader): every layer
+  but the last at half its listed width ([64, 64] is Linear 10 -> 32,
+  concatenated with its max to 64, then Linear 64 -> 64), and the padded
+  slots zeroed before the first layer and then passed through every
+  layer like the points, into each max. A det3d checkpoint's
+  reader.pfn_layers.{i}.linear / .norm load into pfn_{i} / bn_{i}
+  (train/checkpoint.py).
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
@@ -28,16 +40,23 @@ class PillarFeatureNet(nn.Module):
     def __init__(self, num_filters: Sequence[int] = (64,), num_input_features: int = 5,
                  voxel_size: Sequence[float] = (0.2, 0.2),
                  pc_range: Sequence[float] = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
-                 device=None, generator: torch.Generator | None = None):
+                 device=None, generator: torch.Generator | None = None,
+                 det3d: bool = False, dtype=None):
         """`generator` seeds the Linear weights (flax's Dense default,
         lecun normal: N(0, 1/fan_in) truncated at 2 sigma); BN starts at
-        scale 1, bias 0, mean 0, var 1."""
+        scale 1, bias 0, mean 0, var 1. pc_range: only its x and y minimum
+        (the first two entries) are read. det3d: det3d's reading of
+        num_filters (the module's docstring). dtype torch.bfloat16: the
+        linears take bf16 inputs and weights, the BNs run in f32."""
         super().__init__()
         self.num_filters = tuple(num_filters)
         self.voxel_size = tuple(voxel_size)
         self.pc_range = tuple(pc_range)
+        self.det3d, self.dtype = det3d, dtype
         c_in = num_input_features + 5  # + cluster offset (3) + center offset (2)
         for i, f in enumerate(self.num_filters):
+            if det3d and i + 1 < len(self.num_filters):
+                f //= 2
             lin = nn.Linear(c_in, f, bias=False)
             std = c_in ** -0.5 / 0.87962566103423978  # truncated normal's std correction
             nn.init.trunc_normal_(lin.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
@@ -63,21 +82,24 @@ class PillarFeatureNet(nn.Module):
         # pillar-center offset (pillar_encoder.py:106-110); coords are zyx
         vx, vy = self.voxel_size[0], self.voxel_size[1]
         x0, y0 = self.pc_range[0], self.pc_range[1]
-        cx = (coords[:, 2].to(dt) * vx + vx / 2 + x0)[:, None]
-        cy = (coords[:, 1].to(dt) * vy + vy / 2 + y0)[:, None]
+        cx = (coords[:, 2].to(dt) * vx + (vx / 2 + x0))[:, None]
+        cy = (coords[:, 1].to(dt) * vy + (vy / 2 + y0))[:, None]
         f_center = torch.stack([voxels[:, :, 0] - cx, voxels[:, :, 1] - cy], dim=-1)
 
         x = torch.cat([voxels, f_cluster, f_center], dim=-1)
         x = torch.where(mask, x, 0.0)
         for i in range(len(self.num_filters)):
-            x = getattr(self, f"pfn_{i}")(x)
+            w = getattr(self, f"pfn_{i}").weight
+            x = (F.linear(x, w) if self.dtype is None
+                 else F.linear(x.to(self.dtype), w.to(self.dtype)).float())
             x = batch_norm(getattr(self, f"bn_{i}"), x.reshape(V * P, -1, 1, 1)).reshape(V, P, -1)
             x = torch.relu(x)
-            x = torch.where(mask, x, -torch.inf)
+            if not self.det3d:
+                x = torch.where(mask, x, -torch.inf)
             pooled = x.max(dim=1).values  # (V, f)
             if i + 1 < len(self.num_filters):
                 x = torch.cat([x, pooled[:, None, :].expand_as(x)], dim=-1)
-        return torch.where(torch.isfinite(pooled), pooled, 0.0)
+        return pooled if self.det3d else torch.where(torch.isfinite(pooled), pooled, 0.0)
 
 
 def point_pillars_scatter(pillar_feats: torch.Tensor, coords: torch.Tensor,

@@ -12,8 +12,9 @@ flax's batch statistics and update (`batch_norm`).
 
 Inference in f32 on the card (`kernel_route`) runs each conv with its BN
 and ReLU as one launch of the neck's conv kernel (ops/kernels/dense_conv.py):
-15 launches a neck, channels last inside, the two deblocks written into the
-halves of one map. The RPN returns that map as an NCHW-shaped view of its
+15 launches for the VoxelNet neck, 20 for CenterPoint-PP's three blocks,
+channels last inside, the deblocks written into their channel ranges of
+one map. The RPN returns that map as an NCHW-shaped view of its
 NHWC storage, and so does the shared conv. Everything else (bf16, a BN in
 train mode, autograd recording) runs `_run`.
 """
@@ -112,13 +113,27 @@ def _packed(module: nn.Module, groups: list) -> list:
     return cached[1]
 
 
+def deblock_conv(c: int, u: int, stride: float) -> nn.Module:
+    """A deblock's conv from c to u channels at det3d's upsample stride
+    (det3d necks/rpn.py): above 1 a ConvTranspose2d whose kernel is its
+    stride, 1 a 1x1 conv, below 1 a Conv2d of kernel and stride
+    round(1 / stride) (0.5: 2x2 at stride 2)."""
+    if stride > 1:
+        s = int(round(stride))
+        return nn.ConvTranspose2d(c, u, s, stride=s, bias=False)
+    k = int(round(1 / stride))
+    return nn.Conv2d(c, u, k, stride=k, bias=False)
+
+
 class RPN(nn.Module):
-    """CenterPoint RPN (configs/nusc/car.py:52-61 dims by default)."""
+    """CenterPoint RPN (configs/nusc/car.py:52-61 dims by default): any
+    number of blocks, each deblocked to a common grid; the deblocks' maps
+    are concatenated, sum(us_num_filters) channels."""
 
     def __init__(self, layer_nums: Sequence[int] = (5, 5),
                  ds_layer_strides: Sequence[int] = (1, 2),
                  ds_num_filters: Sequence[int] = (128, 256),
-                 us_layer_strides: Sequence[int] = (1, 2),
+                 us_layer_strides: Sequence[float] = (1, 2),
                  us_num_filters: Sequence[int] = (256, 256),
                  num_input_features: int = 256, dtype=None):
         super().__init__()
@@ -134,11 +149,9 @@ class RPN(nn.Module):
                 seq += [nn.Conv2d(c, c, 3, padding=1, bias=False),
                         nn.BatchNorm2d(c, eps=1e-3, momentum=0.01), nn.ReLU()]
             self.blocks.append(nn.Sequential(*seq))
-            s, u = us_layer_strides[i], us_num_filters[i]
-            up = (nn.ConvTranspose2d(c, u, s, stride=s, bias=False) if s > 1
-                  else nn.Conv2d(c, u, 1, stride=1, bias=False))
             self.deblocks.append(nn.Sequential(
-                up, nn.BatchNorm2d(u, eps=1e-3, momentum=0.01), nn.ReLU()))
+                deblock_conv(c, us_num_filters[i], us_layer_strides[i]),
+                nn.BatchNorm2d(us_num_filters[i], eps=1e-3, momentum=0.01), nn.ReLU()))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if kernel_route(self, x):
@@ -147,11 +160,12 @@ class RPN(nn.Module):
         for blk, de in zip(self.blocks, self.deblocks):
             x = _run(blk, x, self.dtype)
             ups.append(_run(de, x, self.dtype))
-        return torch.cat(ups, dim=1)  # (B, 512, H, W)
+        return torch.cat(ups, dim=1)  # (B, sum(us_num_filters), H, W)
 
     def _forward_kernel(self, x: torch.Tensor) -> torch.Tensor:
         """One dense_conv launch a conv; the deblocks fill their channel
-        ranges of one (B, H, W, 512) map, returned as a (B, 512, H, W) view."""
+        ranges of one (B, H, W, C) map, returned as a (B, C, H, W) view
+        (C = sum(us_num_filters))."""
         from ..ops.kernels.dense_conv import dense_conv, out_grid
 
         n = len(self.blocks)

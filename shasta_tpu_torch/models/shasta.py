@@ -7,6 +7,14 @@ Inputs are fixed-shape: detections padded to max_obj rows of 11 features
 capacity with a validity mask. The module is built in eval mode with
 every parameter frozen, as serving runs it; training (train/loop.py) turns
 on the grads and BN modes it needs.
+
+Two trunks, by `ShastaConfig.reader`:
+- "voxelnet" (the default, ShaSTA's configs): voxel means, the sparse 3D
+  trunk (`backbone`), the RPN neck and the shared conv;
+- "pillars" (CenterPoint-PP, configs/nusc/pp/car.py): det3d's
+  PillarFeatureNet (`reader`) over the frame's pillars, scattered onto
+  grid_shape's (ny, nx) canvas, then the neck (three blocks at published
+  widths) and the shared conv. Serving only: train/loop.py refuses it.
 """
 from __future__ import annotations
 
@@ -18,9 +26,11 @@ from ..core.bilinear import sample_bev_features
 from ..core.boxes import box_points_5
 from ..device import resolve_device
 from ..ops import sparse as sp
+from ..utils import profiler
 from ..utils.profiler import annotate
 from .affinity import AffinityNet
 from .backbone import SparseBackbone
+from .pillars import PillarFeatureNet, point_pillars_scatter
 from .rpn import RPN, SharedConv
 from .vfe import voxel_mean_vfe
 
@@ -48,6 +58,23 @@ class ShastaConfig:
     # train mode (the JAX psum axis; any name means the default group)
     bn_axis_name: str | None = None
     dtype: torch.dtype | None = None  # torch.bfloat16 trunk, None = f32
+    # the trunk's reader: "voxelnet" (the sparse 3D trunk) or "pillars"
+    # (CenterPoint-PP: det3d's PillarFeatureNet onto a canvas of
+    # grid_shape's (ny, nx) cells of voxel_size, pc_start its corner), and
+    # the pillar net's published filters
+    reader: str = "voxelnet"
+    pfn_filters: tuple = (64, 64)
+    # the RPN neck, in det3d's names (necks/rpn.py), and its input width
+    layer_nums: tuple = (5, 5)
+    ds_layer_strides: tuple = (1, 2)
+    ds_num_filters: tuple = (128, 256)
+    us_layer_strides: tuple = (1, 2)
+    us_num_filters: tuple = (256, 256)
+    neck_input_features: int = 256
+
+    def __post_init__(self):
+        if self.reader not in ("voxelnet", "pillars"):
+            raise ValueError(f"reader {self.reader!r}: 'voxelnet' or 'pillars'")
 
 
 class ShastaModel(AffinityNet):
@@ -63,15 +90,29 @@ class ShastaModel(AffinityNet):
         super().__init__(cfg.max_obj, cfg.num_feats, cfg.num_point,
                          cfg.share_conv_channel)
         self.cfg = cfg
-        self.backbone = SparseBackbone(
-            cfg.num_input_features, dtype=cfg.dtype,
-            caps=(cfg.cap_conv2, cfg.cap_conv3, cfg.cap_conv4, cfg.cap_extra),
-            bn_sync=cfg.bn_axis_name is not None)
-        self.neck = RPN(dtype=cfg.dtype)
-        self.shared_conv = SharedConv(512, cfg.share_conv_channel, dtype=cfg.dtype)
         self.device = resolve_device(device)
+        if cfg.reader == "pillars":
+            self.reader = PillarFeatureNet(cfg.pfn_filters, cfg.num_input_features,
+                                           cfg.voxel_size, cfg.pc_start, device=self.device,
+                                           det3d=True, dtype=cfg.dtype)
+        else:
+            self.backbone = SparseBackbone(
+                cfg.num_input_features, dtype=cfg.dtype,
+                caps=(cfg.cap_conv2, cfg.cap_conv3, cfg.cap_conv4, cfg.cap_extra),
+                bn_sync=cfg.bn_axis_name is not None)
+        self.neck = RPN(cfg.layer_nums, cfg.ds_layer_strides, cfg.ds_num_filters,
+                        cfg.us_layer_strides, cfg.us_num_filters, cfg.neck_input_features,
+                        dtype=cfg.dtype)
+        self.shared_conv = SharedConv(sum(cfg.us_num_filters), cfg.share_conv_channel,
+                                      dtype=cfg.dtype)
         self.to(self.device).eval()
         self.requires_grad_(False)
+
+    @property
+    def trunk_names(self) -> tuple[str, str, str]:
+        """The attribute names of the trunk's three modules: the pillar
+        reader or the sparse backbone, the neck, the shared conv."""
+        return ("reader" if self.cfg.reader == "pillars" else "backbone", "neck", "shared_conv")
 
     def pair_tensor(self, batch: dict) -> sp.SparseTensor:
         """The curr and the prev frame of B frame pairs as ONE sparse batch
@@ -92,8 +133,12 @@ class ShastaModel(AffinityNet):
         of B frame pairs, through the trunk once (`pair_tensor`), every
         index built on the device."""
         B = batch["voxels"].shape[0]
-        bev = _trunk_from_sparse(self.backbone, self.neck, self.shared_conv,
-                                 self.pair_tensor(batch), None)
+        if self.cfg.reader == "pillars":  # the curr and prev frames as one batch of 2B
+            frames = {k: torch.cat([batch[k], batch["prev_" + k]]) for k in VOXEL_KEYS}
+            bev = trunk_bev(self.cfg, self.reader, self.neck, self.shared_conv, frames)
+        else:
+            bev = _trunk_from_sparse(self.backbone, self.neck, self.shared_conv,
+                                     self.pair_tensor(batch), None)
         return bev[:B], bev[B:]
 
     def forward(self, batch: dict):
@@ -120,7 +165,7 @@ class ShastaModel(AffinityNet):
 
     def bev_single(self, frame: dict) -> torch.Tensor:
         """Shared-conv BEV map (B, H, W, 64) of `trunk_bev`."""
-        return trunk_bev(self.cfg, self.backbone, self.neck, self.shared_conv, frame)
+        return trunk_bev(self.cfg, *(getattr(self, n) for n in self.trunk_names), frame)
 
     def frame_features(self, frame: dict) -> torch.Tensor:
         """Trunk + BEV descriptor sampling for ONE frame of each of B
@@ -136,6 +181,9 @@ class ShastaModel(AffinityNet):
             prev_boxes11[:, :, :7], curr_boxes11[:, :, :7],
             curr_boxes11[:, :, 7:9], curr_boxes11[:, :, 9:10],
             prev_feat.float(), curr_feat.float())
+
+
+VOXEL_KEYS = ("voxels", "num_points", "coordinates", "voxels_valid")
 
 
 def _voxel_rows(cfg: ShastaConfig, voxels, num_points, coordinates, valid, b_off: int = 0):
@@ -159,16 +207,48 @@ def _trunk_from_sparse(backbone: SparseBackbone, neck: RPN, shared_conv: SharedC
     return bev.permute(0, 2, 3, 1)
 
 
-def trunk_bev(cfg: ShastaConfig, backbone: SparseBackbone, neck: RPN,
+def trunk_bev(cfg: ShastaConfig, first: torch.nn.Module, neck: RPN,
               shared_conv: SharedConv, frame: dict) -> torch.Tensor:
     """Shared-conv BEV map (B, H, W, 64), channels last, for ONE frame of
     each of B scenes, through the trunk's three modules (a ShastaModel's,
-    or the one trunk the multi-class step shares). frame: voxels (B, V, P,
-    5), num_points (B, V), coordinates (B, V, 3) [z, y, x], voxels_valid
-    (B, V), all tensors on the trunk's device; optionally, at B=1, the
-    plan_* arrays of shasta_tpu_torch/plans.py (without them every index
-    is built on the device). Row b*V + v carries batch index b."""
-    return _trunk_from_sparse(backbone, neck, shared_conv, *frame_sparse(cfg, frame))
+    or the one trunk the multi-class step shares): `first` is the sparse
+    backbone, or the pillar reader where cfg.reader is "pillars". frame:
+    voxels (B, V, P, 5), num_points (B, V), coordinates (B, V, 3) [z, y,
+    x], voxels_valid (B, V), all tensors on the trunk's device; for the
+    sparse backbone optionally, at B=1, the plan_* arrays of
+    shasta_tpu_torch/plans.py (without them every index is built on the
+    device). Row b*V + v carries batch index b."""
+    if cfg.reader == "pillars":
+        with annotate("step.pillars"):
+            canvas = pillar_canvas(cfg, first, frame)
+        with annotate("step.neck"):
+            bev = shared_conv(neck(canvas.permute(0, 3, 1, 2)))
+        return bev.permute(0, 2, 3, 1)
+    return _trunk_from_sparse(first, neck, shared_conv, *frame_sparse(cfg, frame))
+
+
+def pillar_canvas(cfg: ShastaConfig, reader: PillarFeatureNet, frame: dict) -> torch.Tensor:
+    """The pillar reader over every one of the frame's V pillar slots (B,
+    V, P, 5), scattered onto the canvas of cfg.grid_shape's (ny, nx): (B,
+    ny, nx, C), channels last; the invalid rows are dropped. While a
+    profiler records it counts, per lane, `pillars.kept` (the valid
+    pillars), `pillars.slots` (V) and `pillars.points` (the points in
+    valid pillars)."""
+    B, V, P = frame["voxels"].shape[:3]
+    voxels = frame["voxels"].reshape(B * V, P, -1)[..., :cfg.num_input_features]
+    num = frame["num_points"].reshape(B * V)
+    zyx = frame["coordinates"].reshape(B * V, 3).to(torch.int32)
+    valid = frame["voxels_valid"].reshape(B * V).bool()
+    feats = reader(voxels, num, zyx)
+    bidx = torch.arange(B, dtype=torch.int32, device=feats.device).repeat_interleave(V)
+    canvas = point_pillars_scatter(feats, torch.cat([bidx[:, None], zyx], 1), valid, B,
+                                   *cfg.grid_shape[1:])
+    if profiler.recording():
+        lanes = valid.reshape(B, V)
+        profiler.count("pillars.kept", lanes.sum(1))
+        profiler.count("pillars.slots", [V] * B)
+        profiler.count("pillars.points", (num.reshape(B, V) * lanes).sum(1))
+    return canvas
 
 
 def frame_sparse(cfg: ShastaConfig, frame: dict) -> tuple[sp.SparseTensor, dict | None]:

@@ -10,8 +10,12 @@ layout (kz, ky, kx, in, out), as the JAX converter accepts both
 (shasta_tpu/train/convert.py:82-98).
 
 Two files load: the full Shasta checkpoint, and the trunk-only
-`bev_map.pth` (reader, backbone and neck), which fills backbone and neck.
-They are told apart by their top-level names, as the JAX loader does.
+`bev_map.pth` (reader, backbone and neck), which fills reader, backbone and
+neck. They are told apart by their top-level names, as the JAX loader does.
+A CenterPoint-PP checkpoint's pillar reader is det3d's PFNLayer list,
+`reader.pfn_layers.{i}.linear.weight` and `.norm.*`: it loads as the
+port's `reader.pfn_{i}.weight` and `reader.bn_{i}.*` (`_port_name`); its
+neck's names already match.
 Orbax directories (the JAX package's own checkpoints) cannot be read here:
 tools/orbax_to_pth.py, run where the JAX package and orbax are installed,
 converts one into a .pth.
@@ -26,7 +30,7 @@ import os
 import torch
 
 # the parts of the model each file fills (shasta_tpu/train/convert.py:180-206)
-TRUNK_PARTS = ("backbone", "neck")
+TRUNK_PARTS = ("reader", "backbone", "neck")
 FULL_PARTS = TRUNK_PARTS + ("shared_conv", "aug_shape", "aug_dets", "fuse_shape",
                             "fuse_det", "res_coeff", "aff")
 SPARSE_KERNELS = ((3, 3, 3), (3, 1, 1))
@@ -47,10 +51,23 @@ def _dense_sparse_layout(key: str, w: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def _port_name(key: str) -> str:
+    """det3d's name of a pillar reader's tensor in the port's names."""
+    parts = key.split(".")
+    if parts[:2] == ["reader", "pfn_layers"] and len(parts) >= 5:
+        i, kind = parts[2], parts[3]
+        if kind == "linear":
+            return ".".join(["reader", f"pfn_{i}", *parts[4:]])
+        if kind == "norm":
+            return ".".join(["reader", f"bn_{i}", *parts[4:]])
+    return key
+
+
 def load_checkpoint(path: str) -> dict:
     """A .pth/.pt file as a state_dict in the port's names and layouts:
-    the full Shasta checkpoint's backbone, neck, shared conv and affinity
-    head, or a bev_map.pth's backbone and neck."""
+    the full Shasta checkpoint's reader, backbone, neck, shared conv and
+    affinity head, or a bev_map.pth's (or a CenterPoint checkpoint's)
+    reader, backbone and neck."""
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory: orbax checkpoints of the JAX package cannot be "
@@ -62,7 +79,7 @@ def load_checkpoint(path: str) -> dict:
     sd = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
-    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    sd = {_port_name(k.removeprefix("module.")): v for k, v in sd.items()}
     tops = {k.split(".")[0] for k in sd}
     full = "shared_conv" in tops or any(t.startswith("aug_shape") for t in tops)
     parts = FULL_PARTS if full else TRUNK_PARTS

@@ -235,6 +235,10 @@ def make_train_step(model, tx: Optimizer, bn_train: bool = False, remat: bool = 
       its running statistics updated (a frozen trunk's parameters stay);
     - remat: torch.utils.checkpoint around the part that has gradients.
     """
+    if getattr(getattr(model, "cfg", None), "reader", "voxelnet") != "voxelnet":
+        raise NotImplementedError(
+            f"training runs the VoxelNet trunk only; the {model.cfg.reader!r} reader serves "
+            "(ShastaModel.bev_single, the pipelines) but does not train")
     assert not (cached and bn_train), "cached training never runs the trunk"
     assert not (frozen_trunk_fast and bn_train), (
         "frozen_trunk_fast keeps the trunk constant; BN must run in eval mode")

@@ -5,7 +5,7 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build all six CUDA kernels from shasta_tpu_torch/csrc (one nvcc per
+  2. build all seven CUDA kernels from shasta_tpu_torch/csrc (one nvcc per
      source, in parallel);
   3. hold rulebook_conv and keyed_conv against their plain PyTorch
      versions on the card at the B=1 step's shapes (bench-scale frame:
@@ -81,7 +81,10 @@ Phases (any failure ends the run with a non-zero exit code):
      that frame alone (bf16, 2e-2);
   14. the device voxelizer (300k points into the 120k cap) and rotate_nms
      (500 boxes) against the port's numpy copies: voxels and keep masks
-     exact;
+     exact; 14a. voxelize_lanes on one row of car.eval8 (8 clouds of ~220k
+     points, the car grid, rows in key order) byte for byte the host
+     voxelizer and its plain version, timed against its bytes bound, the
+     plain version on the card and the host voxelizer;
   15. serve a synthetic preprocessed split (data.synthetic.write_track_split:
      2 scenes x 8 frames at the full car configuration, ~70k voxels a frame
      from a key cloud and 9 sweeps) with the port's CLIs on the card:
@@ -100,7 +103,8 @@ Phases (any failure ends the run with a non-zero exit code):
      host arrays;
   16. the official per-class eval flow on a synthetic split (9 scenes x 3
      frames at the full car configuration, f32): `tools.eval.main --batch
-     8` (6 steps, 12 sorted_lookup + 21 gather_conv each, counted;
+     8` (6 steps, 12 sorted_lookup + 21 gather_conv + 1 voxelize_lanes
+     each, counted;
      cp_val.json holds every token with finite ref_detection_score), each
      strided stage's set against its cap per lane on the first 8-lane step,
      that step's 12 lookups and 21 f32 convs against their plain versions,
@@ -110,7 +114,8 @@ Phases (any failure ends the run with a non-zero exit code):
      configuration with 3 lanes (annotations equal, ref_detection_score
      within 1e-4), the eval loop's frames/s (three runs) with its host split
      per frame (read, step, assemble), the device busy share of one profiled
-     pass and no synchronisation in an 8-lane step fed from host arrays;
+     pass and no synchronisation in an 8-lane step fed from host arrays or
+     from host points;
   17. train on the card (phase_training): a labelled synthetic train split
      (write_track_split(split="train"), 4 scenes x 6 frames at
      configs/nusc/car.py as it stands: 4 pairs a step, the doubled batch of
@@ -624,10 +629,9 @@ def phase_multiclass(pipe, frame, class_boxes, counted, n_frames):
     print(f"phase 9: {TIMED_RUNS} runs of {TIMED_FRAMES} frames x {len(pipe.max_obj)} "
           f"classes at {[round(x, 3) for x in runs]} frames/s (median {fps:.3f}); "
           f"launches {launches}")
-    check(launches == {"rulebook_conv": 11 * n_frames, "keyed_conv": 10 * n_frames,
-                       "sorted_lookup": 0, "gather_conv": 0, "block_extract": 0,
-                       "dense_conv": 0},
-          f"expected 11 + 10 trunk launches per multi-class frame, got {launches}")
+    want = {k.__name__: 0 for k in counted}
+    want.update(rulebook_conv=11 * n_frames, keyed_conv=10 * n_frames)
+    check(launches == want, f"expected 11 + 10 trunk launches per multi-class frame, got {launches}")
     C, N = len(pipe.max_obj), pipe.n_max
     with torch.no_grad():
         feat, b = pipe._prev_feat[:, 0], pipe._prev_boxes[:, 0]
@@ -905,6 +909,74 @@ def phase_forward(model2, frame2, kernels):
     print(f"phase 13: two-frame forward ok; launches {launches}; descriptors vs frame_features "
           f"max abs diff {err:.4g} (bf16, 2e-2)")
     return launches
+
+
+def eval8_row(root):
+    """The clouds of one row of the benchmark's car.eval8 (the first frame of
+    8 scenes of its generator: ~220k points a cloud) and the car config's
+    point pipeline."""
+    from shasta_tpu_torch.data.nuscenes import NuScenesTrackDataset, PointPipelineConfig
+    from trackbench.gen.scenes import write_split
+
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)), "trackbench")
+    with open(os.path.join(bench, "traffic", "eval8.json")) as f:
+        mix = dict(json.load(f), scenes=8, frames=1)
+    with open(os.path.join(bench, "configs", "shasta-car.json")) as f:
+        pp = json.load(f)["point_pipeline"]
+    split = write_split(root, 14, mix, pp, {"car": 90})
+    pipe = PointPipelineConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                  for k, v in pp.items()})
+    ds = NuScenesTrackDataset(**split["kwargs"], det_type=["car"], max_objects=90, pipeline=pipe)
+    meta = ds.metadata()
+    return [ds.read_points_at(i, meta[i]["rng_state"])["points"] for i in range(8)], pipe
+
+
+def phase_voxelize_lanes(dev):
+    """Phase 14a: voxelize_lanes on one row of car.eval8 (8 clouds, the car
+    grid, 120,000 x 10 slots a lane, rows in key order), byte for byte the
+    host voxelizer and the plain version, timed against its bytes bound,
+    the plain version on the card and the host voxelizer (voxelize_frame,
+    host clock). Returns the kernel's record."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from shasta_tpu_torch.data.nuscenes import voxelize_frame
+    from shasta_tpu_torch.ops.kernels.voxelize import voxelize_lanes, voxelize_lanes_plain
+    from shasta_tpu_torch.timing import HBM_BYTES_PER_S, median_ms
+
+    with tempfile.TemporaryDirectory() as root:
+        clouds, pipe = eval8_row(root)
+    offsets = np.cumsum([0] + [len(c) for c in clouds])
+    tp = torch.from_numpy(np.concatenate(clouds)).to(dev)
+    args = (pipe.voxel_size, pipe.pc_range, pipe.max_points_in_voxel, pipe.max_voxels,
+            pipe.sort_voxels)
+    got = [g.cpu().numpy() for g in voxelize_lanes(tp, offsets, *args)]
+    t0 = time.perf_counter()
+    host = [voxelize_frame(c, pipe, None, False, pipe.sort_voxels) for c in clouds]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    for li, h in enumerate(host):
+        check(all(g[li].tobytes() == w.tobytes() for g, w in zip(got, h)),
+              f"voxelize_lanes lane {li} differs from the host voxelizer")
+    plain = voxelize_lanes_plain(tp, offsets, *args)
+    check(all(g.tobytes() == w.cpu().numpy().tobytes() for g, w in zip(got, plain)),
+          "voxelize_lanes differs from its plain version")
+    del plain
+    ms = median_ms(lambda: voxelize_lanes(tp, offsets, *args))
+    plain_ms = median_ms(lambda: voxelize_lanes_plain(tp, offsets, *args), reps=5)
+    L, V, P, nc = got[0].shape
+    nbytes = tp.numel() * 4 + sum(g.nbytes for g in got)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    voxels = [int(v.sum()) for v in got[3]]
+    print(f"phase 14a: voxelize_lanes, {L} clouds of car.eval8 ({tp.shape[0]} points, "
+          f"{voxels} voxels, sort_by_key {pipe.sort_voxels}) == the host voxelizer and the "
+          f"plain version byte for byte; card {ms:.4f} ms (bound {bound_ms:.4f} ms by "
+          f"{nbytes / 1e6:.1f} MB, {100 * bound_ms / ms:.1f}%), plain {plain_ms:.2f} ms, "
+          f"host {host_ms:.1f} ms ({host_ms / L:.1f} ms a cloud, host clock)")
+    return dict(ms=ms, bound_ms=bound_ms, bound_by="bytes", plain_ms=plain_ms,
+                host_ms=host_ms, clouds=L, points=int(tp.shape[0]), voxels=voxels,
+                max_abs_err=0.0)
 
 
 def phase_box_ops(dev):
@@ -1238,10 +1310,11 @@ def phase_eval(kernels, smi):
             "--batch", str(EVAL_LANES)]
     annos, launches = counted(kernels, lambda: eval_cli.main(args))
     want = {k.__name__: 0 for k in kernels}
-    want.update(sorted_lookup=12 * steps, gather_conv=21 * steps, dense_conv=NECK_CONVS * steps)
+    want.update(sorted_lookup=12 * steps, gather_conv=21 * steps, dense_conv=NECK_CONVS * steps,
+                voxelize_lanes=steps)
     check(launches == want, f"eval CLI: expected 12 sorted_lookup + 21 gather_conv + "
-                            f"{NECK_CONVS} dense_conv launches per {EVAL_LANES}-lane step, got "
-                            f"{launches}")
+                            f"{NECK_CONVS} dense_conv + 1 voxelize_lanes launches per "
+                            f"{EVAL_LANES}-lane step, got {launches}")
     cp_path = os.path.join(wd, "cp_val.json")
     with open(cp_path) as f:
         check(json.load(f) == annos, "eval CLI: cp_val.json differs from the result")
@@ -1350,6 +1423,16 @@ def phase_eval(kernels, smi):
     host1 = {k: v[None] for k, v in host8.items()}
     syncs = sync_calls(lambda: lanes.step_chunk(host1, [[True] * EVAL_LANES], [n_currs]))
     check(not syncs, f"an eval step from host arrays synchronised with the card: {syncs}")
+    # and one from host points, voxelized on the card
+    clouds = [ds.read_points_at(si * EVAL_FRAMES, meta[si * EVAL_FRAMES]["rng_state"])["points"]
+              for si, _ in row]
+    pts1 = {"points": np.concatenate(clouds),
+            "offsets": np.cumsum([0] + [len(c) for c in clouds]).astype(np.int32),
+            "lanes": np.arange(EVAL_LANES, dtype=np.int32)[None], "det_boxes": host1["det_boxes"]}
+    lanes = EvalLanes(model, EVAL_LANES, pipeline=ds.pipeline)
+    syncs_pts = sync_calls(lambda: lanes.step_chunk(pts1, [[True] * EVAL_LANES], [n_currs]))
+    check(not syncs_pts, f"an eval step from host points synchronised with the card: {syncs_pts}")
+    syncs += syncs_pts
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1372,8 +1455,9 @@ def phase_eval(kernels, smi):
           f"{split['step']:.3f}, assemble {split['assemble']:.3f}; profiled pass: wall "
           f"{wall:.3f} ms, device busy {busy:.3f} ms per frame ({100 * busy / wall:.1f}%) "
           f"({smi})")
-    print(f"  host ms per step in the step's spans {spans}; a step from host arrays "
-          f"synchronised {len(syncs)} times; device ms per step, launches per step, kernel:")
+    print(f"  host ms per step in the step's spans {spans}; a step from host arrays and one "
+          f"from host points synchronised {len(syncs)} times; device ms per step, launches per "
+          f"step, kernel:")
     for ms, count, key in kernels_ms[:8]:
         print(f"    {ms:9.3f} {count:9.1f}  {key[:100]}")
     shutil.rmtree(root, ignore_errors=True)
@@ -2879,7 +2963,7 @@ def main(argv=None) -> int:
     from shasta_tpu_torch.infer import FRAME_KEYS, BatchedScenePipeline, ScenePipeline
     from shasta_tpu_torch.models import ShastaConfig, ShastaModel
     from shasta_tpu_torch.ops.kernels import (block_conv, block_extract, build, dense_conv,
-                                              gather_conv, lookup, window_conv)
+                                              gather_conv, lookup, voxelize, window_conv)
     from shasta_tpu_torch.plans import attach_plans, frame_plans
     from shasta_tpu_torch.profile_step import (CAR, bench_frame, car_setup, multiclass_setup,
                                                without_plans)
@@ -2912,7 +2996,8 @@ def main(argv=None) -> int:
         print(f"phase 2: built gather_conv from {args.before} (--before) in "
               f"{time.perf_counter() - t0:.1f} s")
     kernels = (block_conv.rulebook_conv, window_conv.keyed_conv, lookup.sorted_lookup,
-               gather_conv.gather_conv, block_extract.block_extract, dense_conv.dense_conv)
+               gather_conv.gather_conv, block_extract.block_extract, dense_conv.dense_conv,
+               voxelize.voxelize_lanes)
     path_launches = {}  # main path -> {kernel: launches in its run}
 
     # bench-scale frame, its host plans and the bf16 model (bench.py:39-41,121-148)
@@ -3112,6 +3197,7 @@ def main(argv=None) -> int:
 
     # 14. device box ops
     phase_box_ops(dev)
+    vox = phase_voxelize_lanes(dev)
 
     # 15. a split served by the CLIs
     path_launches["15: serving CLI"], gather_paths[SERVE_LABEL], serving = phase_serving(
@@ -3207,6 +3293,15 @@ def main(argv=None) -> int:
                                         "sum_library_ms", "neck_ms", "run_ms", "max_abs_err")}
                  for B, r in neck[label].items()}
            for key, label in (("batches", "car"), ("pillar_batches", "pillars"))}})
+    by_path = {p: n["voxelize_lanes"] for p, n in path_launches.items() if n["voxelize_lanes"]}
+    out_kernels.append({
+        "name": "voxelize_lanes", "route": "cuda", "source": "shasta_tpu_torch/csrc/voxelize.cu",
+        "replaces": "none: the JAX package voxelizes on the host (host_ops.cpp)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "per": "one call over a row of car.eval8 (8 clouds, rows in key order), the median of "
+               "10 CUDA-event-timed calls; plain: voxelize_lanes_plain on the card; host: "
+               "voxelize_frame over the 8 clouds, host clock; library: none",
+        **vox})
     print(json.dumps({"frames_per_s": fps, "frames_per_s_runs": fps_runs,
                       "b1_no_plans_frames_per_s": fps_nop,
                       "b1_no_plans_frames_per_s_runs": fps_nop_runs,

@@ -438,6 +438,27 @@ class NuScenesTrackDataset:
         self._rng.bit_generator.state = rng_state
         return self[idx]
 
+    def read_points_at(self, idx: int, rng_state: dict) -> dict[str, Any]:
+        """Index idx's detections and metadata as `read_at` gives them, and
+        under "points" the frame's own cloud (`load_sweep_points`, f32), in
+        place of the voxel arrays: no voxel is built and the prev_ cloud is
+        neither read nor drawn. The draws come in `read_at`'s order (the
+        detections', then the frame's sweeps, which precede the prev
+        cloud's), so the cloud is the one `read_at` voxelizes. Test mode only,
+        as `metadata`: training's augmentation draws depend on the clouds."""
+        if not self.test_mode:
+            raise ValueError("read_points_at reads test mode's clouds only (training "
+                             "augments and shuffles them)")
+        self._rng.bit_generator.state = rng_state
+        load, self.load_points = self.load_points, False
+        try:
+            out = self[idx]
+        finally:
+            self.load_points = load
+        with annotate("data.points"):
+            out["points"] = load_sweep_points(self._infos[idx], self.pipeline.nsweeps, self._rng)
+        return out
+
 
 ARRAY_KEYS = (
     "det_boxes", "prev_det_boxes", "gt",

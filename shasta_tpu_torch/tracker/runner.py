@@ -30,6 +30,7 @@ from ..data.nuscenes import collate
 from ..device import upload
 from ..infer import FRAME_KEYS, RESULT_META, StepOutput, _frame_on
 from ..mot.amota import evaluate_amota, frames_from_tracking_result
+from ..ops.kernels.voxelize import voxelize_lanes
 from ..utils.profiler import annotate
 from .decision import apply_decision_rules
 from .pub_tracker import PubTracker, PubTrackerMerged
@@ -180,13 +181,20 @@ class EvalLanes:
     each lane's frame against its carried descriptors and boxes, and the
     decision rules take the lanes as a leading axis. A lane that resets
     starts its scene: its carried descriptors, boxes and n_prev count as
-    zero. n_prev is carried on the host, as n_curr is given."""
+    zero. n_prev is carried on the host, as n_curr is given.
+
+    A step takes either voxel grids built on the host or raw points, which
+    `voxelize_lanes` turns into the same grids on the model's device under
+    the dataset's point pipeline (`pipeline`, a PointPipelineConfig: voxel
+    size, range, caps and `sort_voxels`' row order; every frame padded to
+    max_voxels, padded rows masked)."""
 
     def __init__(self, model, batch: int, fp_thresh: float = 0.7,
-                 decision_thresh: float = 0.5):
+                 decision_thresh: float = 0.5, pipeline=None):
         self.model, self.batch = model, batch
         self.device = model.device
         self.fp_thresh, self.decision_thresh = fp_thresh, decision_thresh
+        self.pipeline = pipeline
         cfg = model.cfg
         self._prev_feat = torch.zeros(
             (batch, cfg.max_obj, cfg.num_point * cfg.share_conv_channel), device=self.device)
@@ -195,10 +203,14 @@ class EvalLanes:
 
     def step_chunk(self, frames: dict, resets, n_currs) -> StepOutput:
         """T steps in one call: frames' FRAME_KEYS arrays are (T, B, ...)
-        numpy arrays or tensors, resets and n_currs (T, B). The carry stays
-        on the device across the T steps (the JAX lax.scan); the (T, B, 6,
-        N) decision rows come back as one StepOutput (`array()`), not
-        fetched until asked."""
+        numpy arrays or tensors, resets and n_currs (T, B). Frames of points
+        carry, in place of the four voxel arrays, "points" (N, 5) f32: the
+        call's clouds one after another, "offsets" (C + 1,) their starts and
+        "lanes" (T, B) the cloud each lane steps; all of them are voxelized
+        at once on the device (span step.voxelize). The carry stays on the
+        device across the T steps (the JAX lax.scan); the (T, B, 6, N)
+        decision rows come back as one StepOutput (`array()`), not fetched
+        until asked."""
         rows = []
         for reset, n_curr in zip(np.asarray(resets, bool), np.asarray(n_currs, np.int64)):
             rows.append(np.stack([reset, np.where(reset, 0, self._n_prev), n_curr]))
@@ -207,9 +219,28 @@ class EvalLanes:
             # the per-lane scalars of all T steps in one host-to-device copy
             sc = upload(np.stack(rows).astype(np.float32), self.device)
             f = _frame_on(frames, self.device)
+            if "points" in frames:
+                points = upload(frames["points"], self.device)
+        if "points" in frames:
+            f.update(self._voxelize(points, frames["offsets"], frames["lanes"]))
         packed = [self._step({k: v[t] for k, v in f.items()}, sc[t])
                   for t in range(sc.shape[0])]
         return StepOutput(torch.stack(packed), self.model.cfg.max_obj)
+
+    def _voxelize(self, points: torch.Tensor, offsets, lanes) -> dict:
+        """The (T, B, ...) voxel arrays of the lanes' clouds, built on the
+        points' device."""
+        pp = self.pipeline
+        if pp is None:
+            raise ValueError("frames of points need the dataset's point pipeline: "
+                             "EvalLanes(..., pipeline=dataset.pipeline)")
+        lanes = np.asarray(lanes)
+        with annotate("step.voxelize"):
+            arrays = voxelize_lanes(points, offsets, pp.voxel_size, pp.pc_range,
+                                    pp.max_points_in_voxel, pp.max_voxels, pp.sort_voxels,
+                                    lanes=lanes.reshape(-1))
+        return {k: a.reshape(lanes.shape + a.shape[1:]) for k, a in
+                zip(("voxels", "coordinates", "num_points", "voxels_valid"), arrays)}
 
     def _step(self, f: dict, sc: torch.Tensor) -> torch.Tensor:
         """One step on device tensors, sc the (3, B) [reset, n_prev, n_curr]
@@ -248,17 +279,21 @@ def run_affinity_eval_batched(model, dataset, batch: int = 8, fp_thresh: float =
       and decisions may differ.
 
     The lane schedule (`lane_schedule`) comes from the samples' metadata
-    (`dataset.metadata()`: no cloud read); a frame is read
-    (`dataset.read_at`, bit-equal to an in-order read) when its row is
-    staged. An idle lane runs a copy of the row's first active frame with
-    reset set and no dets. Each call's decisions start their copy to the
-    host as soon as it is queued and are assembled after the next call is
-    queued. Each part of the loop runs in a profiler span: "eval.read"
-    (metadata and reading frames, voxelization included: the dataset's
-    data.* spans), "eval.step" (staging and queueing calls) and
-    "eval.assemble" (reading decisions back, building the annotations).
-    timings, if given, accumulates the same parts' host seconds under
-    "read", "step" and "assemble"."""
+    (`dataset.metadata()`: no cloud read); a frame's detections and its own
+    cloud are read (`dataset.read_points_at`: the draws of an in-order read,
+    no prev_ cloud) when its row is staged. A call's clouds go to the model's
+    device as one flat array and are voxelized there (`EvalLanes` with the
+    dataset's point pipeline; frames padded to max_voxels), byte for byte as
+    the dataset's host voxelizer builds them. An idle lane runs a copy of
+    the row's first active frame (its cloud and dets) with reset set and no
+    dets counted. Each call's decisions start their copy to the host as
+    soon as it is queued and are assembled after the next call is queued.
+    Each part of the loop runs in a profiler span: "eval.read" (metadata and
+    reading frames: the dataset's data.* spans), "eval.step" (staging and
+    queueing calls, voxelizing included) and "eval.assemble" (reading
+    decisions back, building the annotations). timings, if given,
+    accumulates the same parts' host seconds under "read", "step" and
+    "assemble"."""
 
     def timed(part, fn, *args):
         """fn(*args) in span eval.<part>, which measures the interval in a
@@ -279,16 +314,12 @@ def run_affinity_eval_batched(model, dataset, batch: int = 8, fp_thresh: float =
             scenes.append([])
         scenes[-1].append(i)
     sched = lane_schedule([len(s) for s in scenes], batch)
-    lanes = EvalLanes(model, batch, fp_thresh, decision_thresh)
+    lanes = EvalLanes(model, batch, fp_thresh, decision_thresh, pipeline=dataset.pipeline)
 
     def read_row(row):
-        """(lane samples, None where idle, and each lane's FRAME_KEYS arrays)."""
-        samples = [None if e is None else dataset.read_at(scenes[e[0]][e[1]],
-                                                          meta[scenes[e[0]][e[1]]]["rng_state"])
-                   for e in row]
-        template = next(s for s in samples if s is not None)
-        return samples, [{k: (template if s is None else s)[k] for k in FRAME_KEYS}
-                         for s in samples]
+        """The row's lane samples with their clouds, None where a lane idles."""
+        return [None if e is None else dataset.read_points_at(
+            scenes[e[0]][e[1]], meta[scenes[e[0]][e[1]]]["rng_state"]) for e in row]
 
     nusc_annos: dict[str, Any] = {"results": {}, "meta": None}
     dead_tracker: dict[str, dict] = {}
@@ -304,27 +335,36 @@ def run_affinity_eval_batched(model, dataset, batch: int = 8, fp_thresh: float =
                     if bar:
                         bar.update(1)
 
-    def stage(lane_frames, T):
-        """(T, B, ...) arrays; collate pads occupancy-tiered frames to the
-        call's widest voxel count (padded rows are invalid: no result
-        changes)."""
-        return {k: v.reshape((T, batch) + v.shape[1:]) for k, v in collate(lane_frames).items()}
+    def stage(clouds, lane_cloud, boxes):
+        """The call's frames of points: its clouds in one flat array, their
+        starts, each lane's cloud and the (T, B, ...) det rows."""
+        return {"points": np.concatenate(clouds),
+                "offsets": np.cumsum([0] + [len(c) for c in clouds]).astype(np.int32),
+                "lanes": np.asarray(lane_cloud, np.int32), "det_boxes": np.stack(boxes)}
 
     # the tail group is padded with idle rows, which rerun the last frames
     sched = sched + [[None] * batch] * ((-len(sched)) % chunk)
-    pending, frames = None, None
+    pending = None
     for t0 in range(0, len(sched), chunk):
-        row_samples, lane_frames, resets, n_currs = [], [], [], []
+        row_samples, clouds, lane_cloud, boxes, resets, n_currs = [], [], [], [], [], []
         for row in sched[t0:t0 + chunk]:
             if any(e is not None for e in row):
-                samples, frames = timed("read", read_row, row)
+                samples = timed("read", read_row, row)
+                active = [li for li, s in enumerate(samples) if s is not None]
+                # each active lane's cloud once; an idle lane takes the first's
+                cloud_of = {li: len(clouds) + k for k, li in enumerate(active)}
+                clouds += [samples[li]["points"] for li in active]
+                cl = [cloud_of.get(li, cloud_of[active[0]]) for li in range(batch)]
+                template = samples[active[0]]
+                bx = np.stack([(template if s is None else s)["det_boxes"] for s in samples])
             else:
-                samples = [None] * batch
+                samples = [None] * batch  # cl, bx: the row before's
             row_samples.append(samples)
-            lane_frames += frames
+            lane_cloud.append(cl)
+            boxes.append(bx)
             resets.append([e is None or e[1] == 0 for e in row])
             n_currs.append([0 if s is None else len(s["cls_det_boxes"]) for s in samples])
-        out = timed("step", lambda: lanes.step_chunk(stage(lane_frames, len(resets)), resets,
+        out = timed("step", lambda: lanes.step_chunk(stage(clouds, lane_cloud, boxes), resets,
                                                      n_currs).start_fetch())
         if pending is not None:
             timed("assemble", assemble, pending)

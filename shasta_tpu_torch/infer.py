@@ -10,8 +10,9 @@ scene on one shared trunk.
   out:   one packed (6, 2N) f32 tensor, (B, 6, 2N) for B lanes: track ids,
          used flags, refined scores, keep flags, FN flags and a row of ones
 
-`step_chunk` advances T frames per call (the JAX lax.scan as a Python
-loop over the step) and returns the T packed outputs as one tensor.
+`LaneStep` writes that step once for B lanes (ScenePipeline is the
+BatchedScenePipeline of one lane; runner.EvalLanes the eval's), and
+`decide_and_track` the serving tail. `step_chunk` advances T frames a call.
 `track_scene_dataset` (infer.py:910-1040) serves a dataset of ordered
 frames through a ScenePipeline and returns the tracking result.
 
@@ -23,7 +24,9 @@ always 1.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import time
 from collections import deque
 
@@ -91,9 +94,6 @@ class StepOutput:
 
     def array(self) -> np.ndarray:
         """The packed outputs as a host array (waits for their copy)."""
-        return self._arr()
-
-    def _arr(self) -> np.ndarray:
         if self._np is None:
             with annotate("step.fetch"):  # the wait for the outputs' copy
                 if self._host is not None:
@@ -106,23 +106,23 @@ class StepOutput:
 
     @property
     def tid(self) -> np.ndarray:  # (2N,) int32 track id per det row
-        return self._arr()[..., 0, :].astype(np.int32)
+        return self.array()[..., 0, :].astype(np.int32)
 
     @property
     def used(self) -> np.ndarray:  # (2N,) bool active-track flag
-        return self._arr()[..., 1, :] > 0.5
+        return self.array()[..., 1, :] > 0.5
 
     @property
     def ref(self) -> np.ndarray:  # (2N,) f32 refined score
-        return self._arr()[..., 2, :]
+        return self.array()[..., 2, :]
 
     @property
     def keep(self) -> np.ndarray:  # (N,) bool FP-elimination survivor
-        return self._arr()[..., 3, : self._N] > 0.5
+        return self.array()[..., 3, : self._N] > 0.5
 
     @property
     def fn(self) -> np.ndarray:  # (N,) bool FN-propagation flag
-        return self._arr()[..., 4, : self._N] > 0.5
+        return self.array()[..., 4, : self._N] > 0.5
 
 
 def _dets_with_fn(boxes, prev_boxes, dec, cls_id) -> st.FrameDets:
@@ -162,16 +162,167 @@ def _packed(tid, used, ref, keep, fn) -> torch.Tensor:
 
 
 def _frame_on(frame: dict, dev) -> dict:
-    """The frame's arrays the step reads (FRAME_KEYS and any plan_*), as
-    tensors on dev; host arrays go up through `upload`, so a step fed from
-    the host does not wait for the card's queued work."""
+    """The frame's arrays the step reads (FRAME_KEYS, plan_*, the eval's
+    points) on dev; host arrays go up through `upload`, so a step fed
+    from the host does not wait for the card's queued work."""
     return {k: upload(v, dev) for k, v in frame.items()
-            if k in FRAME_KEYS or k.startswith("plan_")}
+            if k in FRAME_KEYS or k == "points" or k.startswith("plan_")}
 
 
-class ScenePipeline:
-    """Per-frame scene inference for one class model, on the model's device.
+def _per_lane(mask: torch.Tensor, a, b: torch.Tensor) -> torch.Tensor:
+    """torch.where over a leading lane axis: a on the lanes that mask (B,)
+    flags, b (B, ...) on the others."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (b.dim() - 1)), a, b)
 
+
+def decide_and_track(pipe, m1, m2, n_prev, n_curr, boxes, prev_boxes, table: st.TrackTable,
+                     id_count, lag, cls_id):
+    """The step's tail over a lane axis L, at `pipe`'s thresholds and
+    tracker params: decisions on m1 (L, N, N+2), m2 (L, N+2, N) and the
+    counts (host ints or (L,) tensors), dead flags, FN rows and the tracker
+    step from `table` and id_count (L,). Returns (the decisions,
+    step_frames_core's outputs); the caller keeps its id policy."""
+    dec = apply_decision_rules(m1, m2, n_prev, n_curr, fp_thresh=pipe.fp_thresh,
+                               decision_thresh=pipe.decision_thresh)
+    # retroactive ShaSTA dead flags: dec.dead indexes the prev frame's dets,
+    # which hold slots [0, N) of their lane's table (infer.py:220-225)
+    dead_pad = torch.zeros_like(table.dead)
+    dead_pad[:, :dec.dead.shape[-1]] = dec.dead
+    table = table._replace(dead=table.dead | (dead_pad & table.used))
+    dets = _dets_with_fn(boxes, prev_boxes, dec, cls_id)
+    return dec, st.step_frames_core(table, id_count, dets, lag, pipe.params)
+
+
+class LaneStep:
+    """The per-frame step of B lanes, for the serving pipelines and the
+    eval (runner.EvalLanes). The carry: descriptors `_prev_feat` (B, N, F)
+    and boxes `_prev_boxes` (B, N, 11) on the device, det counts `_n_prev`
+    (B,) on the host. A step zeroes the carry of lanes starting a scene
+    (only when the host flags one), runs the trunk and the affinity head,
+    and the subclass's `_tail` packs the outputs from the affinities and
+    the counts (host ints at one lane). `_steps` runs T steps of one upload
+    (the JAX lax.scan), each in span `_STEP_SPAN` where it names one."""
+
+    _STEP_SPAN = "step.frame"
+
+    def __init__(self, model: ShastaModel, batch: int, fp_thresh: float, decision_thresh: float):
+        self.model, self.batch = model, batch
+        self.device = model.device
+        self.fp_thresh, self.decision_thresh = fp_thresh, decision_thresh
+        self.reset()
+
+    def reset(self):
+        """Every lane starts a scene: the carry back to zero."""
+        cfg, dev, B = self.model.cfg, self.device, self.batch
+        self._prev_feat = torch.zeros(
+            (B, cfg.max_obj, cfg.num_point * cfg.share_conv_channel), device=dev)
+        self._prev_boxes = torch.zeros((B, cfg.max_obj, 11), device=dev)
+        self._n_prev = np.zeros((B,), np.int64)  # host-side, like n_curr
+
+    def _upload(self, frames: dict, n_currs, resets, *rows):
+        """Span step.upload: frames' arrays and the (T, R, B) f32 scalars
+        [reset, n_prev, n_curr, *rows] of T steps (one copy; advances the
+        host's n_prev). Returns (the arrays, (the scalars, their copy))."""
+        with annotate("step.upload"):
+            n_currs, resets = np.asarray(n_currs, np.int64), np.asarray(resets, bool)
+            n_prev = np.where(resets, 0, np.concatenate([self._n_prev[None], n_currs[:-1]]))
+            self._n_prev = n_currs[-1].copy()
+            host = np.stack([resets, n_prev, n_currs, *rows], 1).astype(np.float32)
+            return _frame_on(frames, self.device), (host, upload(host, self.device))
+
+    def _frame(self, frame: dict, n_curr, reset, *rows) -> torch.Tensor:
+        """One step of the lanes in span step.frame: frame's arrays (B, ...)
+        on the host or the device, the lanes' host scalars (B,) each."""
+        with annotate("step.frame"):
+            f, (host, dev) = self._upload(frame, [n_curr], [reset], *([r] for r in rows))
+            return self._step(f, (host[0], dev[0]))
+
+    def _steps(self, f: dict, sc) -> torch.Tensor:
+        """The T steps of one upload (f's arrays (T, B, ...), sc as
+        `_upload` returns it); the T packed outputs stacked."""
+        host, dev = sc
+        packed = []
+        for t in range(len(host)):
+            with annotate(self._STEP_SPAN) if self._STEP_SPAN else contextlib.nullcontext():
+                packed.append(self._step({k: v[t] for k, v in f.items()}, (host[t], dev[t])))
+        return torch.stack(packed)
+
+    def _step(self, f: dict, sc) -> torch.Tensor:
+        """One step on device tensors, sc the (R, B) lane scalars on the
+        host and the device; advances the carry."""
+        host, dev = sc
+        with torch.no_grad():
+            if host[0].any():
+                self._zero_lanes(dev[0] > 0.5)
+            with annotate("step.trunk"):
+                curr_feat = self.model.frame_features(f)
+            with annotate("step.affinity"):
+                m1, m2 = self.model.affinity_step(self._prev_boxes, f["det_boxes"],
+                                                  self._prev_feat, curr_feat)
+            counts = ([int(n) for n in host[1:3, 0]] if self.batch == 1 else (dev[1], dev[2]))
+            packed = self._tail(m1, m2, f["det_boxes"], counts, dev)
+        self._prev_feat, self._prev_boxes = curr_feat, f["det_boxes"]
+        return packed
+
+    def _zero_lanes(self, rz: torch.Tensor):
+        """The carry of the lanes flagged in rz (B,) back to zero."""
+        # False: the zero of every dtype
+        self._prev_feat = _per_lane(rz, False, self._prev_feat)
+        self._prev_boxes = _per_lane(rz, False, self._prev_boxes)
+
+
+class BatchedScenePipeline(LaneStep):
+    """Scene-parallel serving for one class model: B scene lanes advance
+    one frame each per `step_frames`, every index built on the device
+    (`sorted_lookup` + `gather_conv`), the tail `decide_and_track` (the
+    JAX jax.vmap over scenes) on each lane's table `_table` (B, CAP, ...).
+    A `reset` lane's carry and table are zeroed (a reset table's cls is 0,
+    not -1) before the step. Id counters `_id_counts` start at
+    lane * 1_000_000 and are never reset (infer.py:559-572)."""
+
+    def __init__(self, model: ShastaModel, cls_id: int, batch: int,
+                 params: st.TrackerParams | None = None, fp_thresh: float = 0.7,
+                 decision_thresh: float = 0.5, track_cap: int | None = None):
+        self.cls_id = cls_id
+        self.params = params or default_tracker_params(device=model.device)
+        # det-major slots hold 2N rows (curr dets + FN injections)
+        self.cap = track_cap or 2 * model.cfg.max_obj * (self.params.max_age + 1)
+        super().__init__(model, batch, fp_thresh, decision_thresh)
+
+    def reset(self):
+        super().reset()
+        self._table = st.TrackTable.empty(self.cap, self.device, self.batch)
+        self._id_counts = torch.arange(0, self.batch * 1_000_000, 1_000_000,
+                                       dtype=torch.int32, device=self.device)
+
+    def step_frames(self, frame: dict, n_curr, reset, time_lags) -> StepOutput:
+        """frame: batched arrays (B, ...) of numpy arrays or tensors; n_curr
+        (B,) real det counts; reset (B,) new-scene flags; time_lags (B,).
+        Returns a StepOutput whose fields have a leading (B,) axis."""
+        return StepOutput(self._frame(frame, n_curr, reset, time_lags), self.model.cfg.max_obj)
+
+    def step_chunk(self, frames: dict, n_currs, resets, time_lags) -> StepOutput:
+        """T frames of the B lanes in one call: frames' arrays (T, B, ...),
+        n_currs, resets and time_lags (T, B); one StepOutput, fetched once."""
+        return StepOutput(self._steps(*self._upload(frames, n_currs, resets, time_lags)),
+                          self.model.cfg.max_obj)
+
+    def _zero_lanes(self, rz: torch.Tensor):
+        super()._zero_lanes(rz)
+        self._table = st.TrackTable(*(_per_lane(rz, False, t) for t in self._table))
+
+    def _tail(self, m1, m2, boxes, counts, dev) -> torch.Tensor:
+        with annotate("step.decide_track"):
+            dec, (table, n_new, tid, used, ref, _) = decide_and_track(
+                self, m1, m2, *counts, boxes, self._prev_boxes, self._table,
+                self._id_counts, dev[3], self.cls_id)
+            self._table, self._id_counts = table, self._id_counts + n_new
+        return _packed(tid, used, ref, dec.keep, dec.fn)
+
+
+class ScenePipeline(BatchedScenePipeline):
+    """Per-frame scene inference for one class model: the
+    BatchedScenePipeline of one lane, whose outputs drop the lane axis.
     A frame with plan_* arrays (shasta_tpu_torch/plans.py) runs the planned
     trunk (11 rulebook_conv + 10 keyed_conv); a frame without them builds
     every index on the device (sorted_lookup + 21 gather_conv), and nothing
@@ -180,185 +331,21 @@ class ScenePipeline:
     def __init__(self, model: ShastaModel, cls_id: int,
                  params: st.TrackerParams | None = None, fp_thresh: float = 0.7,
                  decision_thresh: float = 0.5, track_cap: int | None = None):
-        self.model, self.cls_id = model, cls_id
-        self.device = model.device
-        self.params = params or default_tracker_params(device=self.device)
-        self.fp_thresh, self.decision_thresh = fp_thresh, decision_thresh
-        N = model.cfg.max_obj
-        # det-major slots hold 2N rows (curr dets + FN injections)
-        self.cap = track_cap or 2 * N * (self.params.max_age + 1)
-        self.reset()
-
-    def reset(self):
-        cfg, dev = self.model.cfg, self.device
-        self._prev_feat = torch.zeros(
-            (1, cfg.max_obj, cfg.num_point * cfg.share_conv_channel), device=dev)
-        self._prev_boxes = torch.zeros((1, cfg.max_obj, 11), device=dev)
-        self._n_prev = 0
-        self._table = st.TrackTable.empty(self.cap, dev)
-        self._id_count = torch.zeros((), dtype=torch.int32, device=dev)
+        super().__init__(model, cls_id, 1, params, fp_thresh, decision_thresh, track_cap)
 
     def step_frame(self, frame: dict, n_curr: int, time_lag: float) -> StepOutput:
         """frame: fixed-shape single-frame batch (B=1) of numpy arrays or
         tensors, with or without plan_* arrays."""
-        with annotate("step.frame"):
-            with annotate("step.upload"):
-                lag = upload(np.float32(time_lag), self.device)
-                f = _frame_on(frame, self.device)
-            return StepOutput(self._step(f, int(n_curr), lag), self.model.cfg.max_obj)
+        return StepOutput(self._frame(frame, [n_curr], [False], [time_lag])[0],
+                          self.model.cfg.max_obj)
 
     def step_chunk(self, frames: dict, n_currs, time_lags) -> StepOutput:
-        """T consecutive frames of one scene in one call: frames' arrays
-        carry a leading (T,) axis over the step_frame shapes (stacked plan_*
-        arrays too, or none); n_currs and time_lags have length T. The carry
-        stays on the device across the T steps (the JAX lax.scan), and the
-        (T, 6, 2N) outputs come back as one StepOutput, fetched once."""
-        with annotate("step.upload"):
-            f = _frame_on(frames, self.device)
-            lags = upload(np.asarray(time_lags, np.float32), self.device)
-        packed = []
-        for t, n in enumerate(n_currs):
-            with annotate("step.frame"):
-                packed.append(self._step({k: v[t] for k, v in f.items()}, int(n), lags[t]))
-        return StepOutput(torch.stack(packed), self.model.cfg.max_obj)
-
-    def _step(self, f: dict, n_curr: int, lag: torch.Tensor) -> torch.Tensor:
-        """One step on device tensors; advances the carry and returns the
-        packed (6, 2N) outputs."""
-        N = self.model.cfg.max_obj
-        with torch.no_grad():
-            with annotate("step.trunk"):
-                curr_feat = self.model.frame_features(f)
-            with annotate("step.affinity"):
-                m1, m2 = self.model.affinity_step(self._prev_boxes, f["det_boxes"],
-                                                  self._prev_feat, curr_feat)
-            with annotate("step.decide_track"):
-                dec = apply_decision_rules(m1[0], m2[0], self._n_prev, n_curr,
-                                           fp_thresh=self.fp_thresh,
-                                           decision_thresh=self.decision_thresh)
-                # retroactive ShaSTA dead flags: dec.dead indexes the prev
-                # frame's dets, which hold table slots 0..N-1 (infer.py:220-225)
-                table = self._table
-                dead_pad = torch.zeros_like(table.dead)
-                dead_pad[:N] = dec.dead
-                table = table._replace(dead=table.dead | (dead_pad & table.used))
-                dets = _dets_with_fn(f["det_boxes"][0], self._prev_boxes[0], dec,
-                                     self.cls_id)
-                table, id_count, tid, used, ref = st.step_frame(
-                    table, self._id_count, dets, lag, self.params)
-            packed = _packed(tid, used, ref, dec.keep, dec.fn)
-        self._prev_feat = curr_feat
-        self._prev_boxes = f["det_boxes"]
-        self._n_prev = n_curr
-        self._table = table
-        self._id_count = id_count
-        return packed
-
-
-class BatchedScenePipeline:
-    """Scene-parallel serving for one class model: B independent scene
-    lanes advance one frame each per `step_frames`, on the model's device.
-
-    The trunk and affinity head run batched over the lanes, with no host
-    plans: every sparse index is built on the device (`sorted_lookup`) and
-    every conv runs `gather_conv`. The decision rules and the tracker step
-    take the lanes as a leading axis (the JAX jax.vmap over scenes). Scenes
-    of different lengths use the per-lane `reset` mask: a True entry zeroes
-    that lane's carried descriptors, boxes, n_prev and every track-table
-    field (zeros_like, so a reset table's cls is 0, not -1) before the
-    step. Id counters start at lane * 1_000_000 and are never reset, which
-    keeps ids unique across lanes (infer.py:559-572)."""
-
-    def __init__(self, model: ShastaModel, cls_id: int, batch: int,
-                 params: st.TrackerParams | None = None, fp_thresh: float = 0.7,
-                 decision_thresh: float = 0.5, track_cap: int | None = None):
-        self.model, self.cls_id, self.batch = model, cls_id, batch
-        self.device = model.device
-        self.params = params or default_tracker_params(device=self.device)
-        self.fp_thresh, self.decision_thresh = fp_thresh, decision_thresh
-        self.cap = track_cap or 2 * model.cfg.max_obj * (self.params.max_age + 1)
-        self.reset()
-
-    def reset(self):
-        cfg, dev, B = self.model.cfg, self.device, self.batch
-        self._prev_feat = torch.zeros(
-            (B, cfg.max_obj, cfg.num_point * cfg.share_conv_channel), device=dev)
-        self._prev_boxes = torch.zeros((B, cfg.max_obj, 11), device=dev)
-        self._n_prev = np.zeros((B,), np.int64)  # host-side, like n_curr
-        self._tables = st.TrackTable(*(t.expand((B,) + t.shape).clone()
-                                       for t in st.TrackTable.empty(self.cap, dev)))
-        self._id_counts = torch.arange(B, dtype=torch.int32, device=dev) * 1_000_000
-
-    def _scalars(self, n_currs, resets, time_lags) -> np.ndarray:
-        """(T, 4, B) f32 per-step lane scalars [reset, n_prev, n_curr, lag]
-        for T steps from the carried n_prev; advances the host-side n_prev."""
-        n_currs = np.asarray(n_currs, np.int64)
-        resets = np.asarray(resets, bool)
-        rows = []
-        for n_curr, reset, lags in zip(n_currs, resets, np.asarray(time_lags)):
-            rows.append(np.stack([reset, np.where(reset, 0, self._n_prev), n_curr, lags]))
-            self._n_prev = n_curr
-        return np.stack(rows).astype(np.float32)
-
-    def step_frames(self, frame: dict, n_curr, reset, time_lags) -> StepOutput:
-        """frame: batched arrays (B, ...) of numpy arrays or tensors; n_curr
-        (B,) real det counts; reset (B,) new-scene flags; time_lags (B,).
-        Returns a StepOutput whose fields have a leading (B,) axis."""
-        with annotate("step.frame"):
-            with annotate("step.upload"):
-                # the per-lane scalars in one host-to-device copy
-                sc = upload(self._scalars([n_curr], [reset], [time_lags])[0], self.device)
-                f = _frame_on(frame, self.device)
-            return StepOutput(self._step(f, sc), self.model.cfg.max_obj)
-
-    def step_chunk(self, frames: dict, n_currs, resets, time_lags) -> StepOutput:
-        """All B lanes through T frames in one call: frames' arrays are
-        (T, B, ...); n_currs, resets and time_lags (T, B). The carry stays
-        on the device across the T steps; the (T, B, 6, 2N) outputs come
-        back as one StepOutput, fetched once."""
-        with annotate("step.upload"):
-            f = _frame_on(frames, self.device)
-            sc = upload(self._scalars(n_currs, resets, time_lags), self.device)
-        packed = []
-        for t in range(sc.shape[0]):
-            with annotate("step.frame"):
-                packed.append(self._step({k: v[t] for k, v in f.items()}, sc[t]))
-        return StepOutput(torch.stack(packed), self.model.cfg.max_obj)
-
-    def _step(self, f: dict, sc: torch.Tensor) -> torch.Tensor:
-        """One step on device tensors, sc the (4, B) lane scalars; advances
-        the device carry and returns the packed (B, 6, 2N) outputs."""
-        N, B = self.model.cfg.max_obj, self.batch
-        rz = sc[0] > 0.5
-        with torch.no_grad():
-            prev_feat = torch.where(rz[:, None, None], 0.0, self._prev_feat)
-            prev_boxes = torch.where(rz[:, None, None], 0.0, self._prev_boxes)
-            tables = st.TrackTable(*(
-                torch.where(rz.reshape((B,) + (1,) * (t.dim() - 1)), torch.zeros_like(t), t)
-                for t in self._tables))
-            with annotate("step.trunk"):
-                curr_feat = self.model.frame_features(f)
-            with annotate("step.affinity"):
-                m1, m2 = self.model.affinity_step(prev_boxes, f["det_boxes"],
-                                                  prev_feat, curr_feat)
-            with annotate("step.decide_track"):
-                dec = apply_decision_rules(m1, m2, sc[1].to(torch.int32),
-                                           sc[2].to(torch.int32),
-                                           fp_thresh=self.fp_thresh,
-                                           decision_thresh=self.decision_thresh)
-                # retroactive dead flags onto each lane's prev-det slots
-                dead_pad = torch.zeros_like(tables.dead)
-                dead_pad[:, :N] = dec.dead
-                tables = tables._replace(dead=tables.dead | (dead_pad & tables.used))
-                dets = _dets_with_fn(f["det_boxes"], prev_boxes, dec, self.cls_id)
-                tables, id_counts, tid, used, ref = st.step_frames(
-                    tables, self._id_counts, dets, sc[3], self.params)
-            packed = _packed(tid, used, ref, dec.keep, dec.fn)
-        self._prev_feat = curr_feat
-        self._prev_boxes = f["det_boxes"]
-        self._tables = tables
-        self._id_counts = id_counts
-        return packed
+        """T frames of one scene in one call: frames' arrays (plan_* too, or
+        none) stacked on a (T,) axis, n_currs and time_lags (T,)."""
+        n = np.asarray(n_currs)[:, None]
+        return StepOutput(self._steps(*self._upload(frames, n, np.zeros_like(n, bool),
+                                                      np.c_[time_lags]))[:, 0],
+                          self.model.cfg.max_obj)
 
 
 class _ClassStepOutput(StepOutput):
@@ -377,9 +364,9 @@ class _ClassStepOutput(StepOutput):
         self._whole.start_fetch()
         return self
 
-    def _arr(self) -> np.ndarray:
+    def array(self) -> np.ndarray:
         if self._np is None:
-            self._np = self._whole._arr()[self._index][:, self._cols]
+            self._np = self._whole.array()[self._index][:, self._cols]
         return self._np
 
 
@@ -444,6 +431,8 @@ class MultiClassScenePipeline:
                                      dtype=torch.int32, device=dev)
         self._F = c0.num_point * c0.share_conv_channel
         self.cap = 2 * N * (self.params.max_age + 1)
+        # the tracker issues each class's new ids from 0: rebased below
+        self._no_ids = torch.zeros((len(self._names),), dtype=torch.int32, device=dev)
         self.reset()
 
     def reset(self):
@@ -451,8 +440,7 @@ class MultiClassScenePipeline:
         self._prev_feat = torch.zeros((C, 1, N, self._F), device=dev)
         self._prev_boxes = torch.zeros((C, 1, N, 11), device=dev)
         self._n_prev = np.zeros((C,), np.float32)  # host-side, like n_curr
-        self._tables = st.TrackTable(*(t.expand((C,) + t.shape).clone()
-                                       for t in st.TrackTable.empty(self.cap, dev)))
+        self._tables = st.TrackTable.empty(self.cap, dev, C)
         self._id_count = torch.zeros((), dtype=torch.int32, device=dev)
 
     def dispatch_frame(self, frame: dict, class_boxes: dict, time_lag: float):
@@ -462,78 +450,63 @@ class MultiClassScenePipeline:
         without (every index built on the device); class_boxes: {name: (det boxes (1, N_c, 11),
         n_curr)} as host arrays. The tracker state has advanced on return."""
         with annotate("step.frame"):
-            return self._dispatch(frame, class_boxes, time_lag)
-
-    def _dispatch(self, frame: dict, class_boxes: dict, time_lag: float):
-        cfg = self.trunk.cfg
-        dev, C, N = self.device, len(self._names), self.n_max
-        boxes = np.zeros((C, N, 11), np.float32)
-        n_curr = np.zeros((C,), np.float32)
-        skip = np.ones((C,), np.float32)
-        for i, n in enumerate(self._names):
-            if n in class_boxes:
-                b, nc = class_boxes[n]
-                b = np.asarray(b, np.float32).reshape(-1, 11)
-                boxes[i, :b.shape[0]] = b
-                n_curr[i], skip[i] = nc, 0.0
-        with annotate("step.upload"):
-            f = _frame_on(frame, dev)
-            # the boxes and per-class scalars in one host-to-device copy
-            buf = upload(np.concatenate([boxes.reshape(-1), self._n_prev, n_curr, skip,
-                                         [time_lag]]).astype(np.float32), dev)
-        boxes_st = buf[:C * N * 11].view(C, 1, N, 11)
-        sc = buf[C * N * 11:]
-        absent = sc[2 * C:3 * C] > 0.5
-        with torch.no_grad():
-            with annotate("step.trunk"):
-                bev = self.trunk.bev_single(f)
-                pts = box_points_5(boxes_st[:, 0, :, :7])  # (C, N, 5, 3)
-                curr_feat = sample_bev_features(
-                    bev, pts.reshape(1, C * N, *pts.shape[2:]), cfg.pc_start,
-                    cfg.voxel_size, cfg.out_stride).reshape(C, 1, N, -1).float()
-            with annotate("step.affinity"):
-                cb = boxes_st[:, 0]
-                m1, m2 = self.head(self._prev_boxes[:, 0, :, :7], cb[..., :7], cb[..., 7:9],
-                                   cb[..., 9:10], self._prev_feat[:, 0], curr_feat[:, 0],
-                                   n_real=self._n_real)
-            with annotate("step.decide_track"):
-                dec = apply_decision_rules(m1, m2, sc[:C].to(torch.int32),
-                                           sc[C:2 * C].to(torch.int32),
-                                           fp_thresh=self.fp_thresh,
-                                           decision_thresh=self.decision_thresh)
-                # retroactive dead flags: prev dets hold slots [0, N) of their
-                # class table (infer.py:737-742)
-                before = self._tables
-                dead_pad = torch.zeros_like(before.dead)
-                dead_pad[:, :N] = dec.dead
-                tables = before._replace(dead=before.dead | (dead_pad & before.used))
-                dets = _dets_with_fn(cb, self._prev_boxes[:, 0], dec, self._cls_ids)
-                tables, n_new, tid, used, ref, is_new = st.step_frames_core(
-                    tables, torch.zeros((C,), dtype=torch.int32, device=dev), dets,
-                    sc[3 * C].expand(C), self.params)
-                # an absent class keeps its pre-step, pre-dead-flag table
-                tables = st.TrackTable(*(
-                    torch.where(absent.reshape((C,) + (1,) * (new.dim() - 1)), old, new)
-                    for new, old in zip(tables, before)))
-                n_new = torch.where(absent, 0, n_new)
-                # class-major rebase of the relative new ids (infer.py:756-765)
-                base = (self._id_count + torch.cumsum(n_new, 0, dtype=torch.int32)
-                        - n_new)
-                renew = is_new & ~absent[:, None]
-                tid = torch.where(renew, tid + base[:, None], tid)
-                renew_slots = torch.zeros_like(tables.used)
-                renew_slots[:, :2 * N] = renew
-                tables = tables._replace(tid=torch.where(
-                    renew_slots, tables.tid + base[:, None], tables.tid))
-                id_count = self._id_count + n_new.sum().to(torch.int32)
-            packed = _packed(tid, used, ref, dec.keep, dec.fn)  # (C, 6, 2N)
-            keep_prev = absent[:, None, None, None]
-            self._prev_feat = torch.where(keep_prev, self._prev_feat, curr_feat)
-            self._prev_boxes = torch.where(keep_prev, self._prev_boxes, boxes_st)
-        self._n_prev = np.where(skip > 0.5, self._n_prev, n_curr)
-        self._tables = tables
-        self._id_count = id_count
-        return StepOutput(packed, N), tuple(n for n in self._names if n in class_boxes)
+            cfg = self.trunk.cfg
+            dev, C, N = self.device, len(self._names), self.n_max
+            boxes = np.zeros((C, N, 11), np.float32)
+            n_curr = np.zeros((C,), np.float32)
+            skip = np.ones((C,), np.float32)
+            for i, n in enumerate(self._names):
+                if n in class_boxes:
+                    b, nc = class_boxes[n]
+                    b = np.asarray(b, np.float32).reshape(-1, 11)
+                    boxes[i, :b.shape[0]] = b
+                    n_curr[i], skip[i] = nc, 0.0
+            with annotate("step.upload"):
+                f = _frame_on(frame, dev)
+                # the boxes and per-class scalars in one host-to-device copy
+                buf = upload(np.concatenate([boxes.reshape(-1), self._n_prev, n_curr, skip,
+                                             [time_lag]]).astype(np.float32), dev)
+            boxes_st = buf[:C * N * 11].view(C, 1, N, 11)
+            sc = buf[C * N * 11:]
+            absent = sc[2 * C:3 * C] > 0.5
+            with torch.no_grad():
+                with annotate("step.trunk"):
+                    bev = self.trunk.bev_single(f)
+                    pts = box_points_5(boxes_st[:, 0, :, :7])  # (C, N, 5, 3)
+                    curr_feat = sample_bev_features(
+                        bev, pts.reshape(1, C * N, *pts.shape[2:]), cfg.pc_start,
+                        cfg.voxel_size, cfg.out_stride).reshape(C, 1, N, -1).float()
+                with annotate("step.affinity"):
+                    cb = boxes_st[:, 0]
+                    m1, m2 = self.head(self._prev_boxes[:, 0, :, :7], cb[..., :7], cb[..., 7:9],
+                                       cb[..., 9:10], self._prev_feat[:, 0], curr_feat[:, 0],
+                                       n_real=self._n_real)
+                with annotate("step.decide_track"):
+                    before = self._tables
+                    dec, (tables, n_new, tid, used, ref, is_new) = decide_and_track(
+                        self, m1, m2, sc[:C], sc[C:2 * C], cb, self._prev_boxes[:, 0], before,
+                        self._no_ids, sc[3 * C].expand(C), self._cls_ids)
+                    # an absent class keeps its pre-step, pre-dead-flag table
+                    tables = st.TrackTable(*(_per_lane(absent, old, new)
+                                             for old, new in zip(before, tables)))
+                    n_new = torch.where(absent, 0, n_new)
+                    # class-major rebase of the relative new ids (infer.py:756-765)
+                    base = (self._id_count + torch.cumsum(n_new, 0, dtype=torch.int32)
+                            - n_new)
+                    renew = is_new & ~absent[:, None]
+                    tid = torch.where(renew, tid + base[:, None], tid)
+                    renew_slots = torch.zeros_like(tables.used)
+                    renew_slots[:, :2 * N] = renew
+                    tables = tables._replace(tid=torch.where(
+                        renew_slots, tables.tid + base[:, None], tables.tid))
+                    id_count = self._id_count + n_new.sum().to(torch.int32)
+                packed = _packed(tid, used, ref, dec.keep, dec.fn)  # (C, 6, 2N)
+                self._prev_feat = _per_lane(absent, self._prev_feat, curr_feat)
+                self._prev_boxes = _per_lane(absent, self._prev_boxes, boxes_st)
+            self._n_prev = np.where(skip > 0.5, self._n_prev, n_curr)
+            self._tables = tables
+            self._id_count = id_count
+            return StepOutput(packed, N), tuple(n for n in self._names if n in class_boxes)
 
     def step_frame(self, frame: dict, class_boxes: dict, time_lag: float) -> dict:
         """One frame of all classes present: {name: StepOutput} with the
@@ -577,6 +550,29 @@ def fn_translation(src: dict, fn_lag: float) -> list:
     return tr
 
 
+def _progress(total: int, progress: bool):
+    """A tqdm bar over `total` frames where asked for and installed, else None."""
+    if not progress:
+        return None
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return None
+    return tqdm(total=total)
+
+
+def _timed(timings: dict | None, span: str | None, part: str, fn, *args):
+    """fn(*args), in profiler span `span` + part where span is given; where
+    timings is given, its host seconds also go to timings[part]."""
+    with annotate(span + part) if span else contextlib.nullcontext():
+        if timings is None:
+            return fn(*args)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        timings[part] = timings.get(part, 0.0) + time.perf_counter() - t0
+        return out
+
+
 def track_scene_dataset(pipeline: ScenePipeline, dataset, progress: bool = False,
                         use_host_plans: bool = False, timings: dict | None = None) -> dict:
     """Run the pipeline over a dataset of ordered frames (a
@@ -596,22 +592,9 @@ def track_scene_dataset(pipeline: ScenePipeline, dataset, progress: bool = False
     voxelization), "step" (queueing the step) and "format" (reading the
     outputs back and building the annotations)."""
     results: dict[str, list] = {}
-    it = range(len(dataset))
-    if progress:
-        try:
-            from tqdm import tqdm
-
-            it = tqdm(it)
-        except ImportError:
-            pass
+    bar = _progress(len(dataset), progress)
     N = pipeline.model.cfg.max_obj
-    spent = timings if timings is not None else {}
-
-    def timed(part, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        spent[part] = spent.get(part, 0.0) + time.perf_counter() - t0
-        return out
+    timed = functools.partial(_timed, timings, None)
 
     def step(sample):
         frame = {k: sample[k][None] for k in FRAME_KEYS}
@@ -648,12 +631,16 @@ def track_scene_dataset(pipeline: ScenePipeline, dataset, progress: bool = False
             format_out(*pending.popleft())
 
     pipeline.reset()
-    for i in it:
+    for i in range(len(dataset)):
         sample = timed("read", dataset.__getitem__, i)
         if not sample["prev_token"]:
             timed("format", drain, True)
             pipeline.reset()
         pending.append((sample, timed("step", step, sample)))
         timed("format", drain)
+        if bar:
+            bar.update(1)
     timed("format", drain, True)
+    if bar:
+        bar.close()
     return {"results": results, "meta": dict(RESULT_META)}

@@ -18,6 +18,7 @@ loop's safe replay and its packed `ok` row have no counterpart.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import time
@@ -28,7 +29,8 @@ import torch
 
 from ..data.nuscenes import collate
 from ..device import upload
-from ..infer import FRAME_KEYS, RESULT_META, StepOutput, _frame_on
+from ..infer import (FRAME_KEYS, RESULT_META, LaneStep, StepOutput, _progress, _timed,
+                     anno_from, fn_translation)
 from ..mot.amota import evaluate_amota, frames_from_tracking_result
 from ..ops.kernels.voxelize import voxelize_lanes
 from ..utils.profiler import annotate
@@ -50,17 +52,6 @@ def _unpack(p: np.ndarray) -> dict:
     """One pair's or lane's (6, N) rows -> the decision arrays."""
     return {"dead": p[0] > 0.5, "fn": p[1] > 0.5, "fn_ref": p[2],
             "keep": p[3] > 0.5, "newborn": p[4] > 0.5, "ref": p[5]}
-
-
-def _progress(total: int, progress: bool):
-    """A tqdm bar over `total` frames where asked for and installed, else None."""
-    if not progress:
-        return None
-    try:
-        from tqdm import tqdm
-    except ImportError:
-        return None
-    return tqdm(total=total)
 
 
 def run_affinity_eval(model, dataset, fp_thresh: float = 0.7, decision_thresh: float = 0.5,
@@ -117,9 +108,7 @@ def _assemble_frame_annos(sample, dec_np, nusc_annos, dead_tracker):
                 dead_tracker[prev_token]["dead_idx"].append(n)
             elif dec_np["fn"][n]:
                 a = dict(prev_cls[n])
-                a["translation"] = list(a["translation"])
-                a["translation"][:2] = [t + time_lag * v
-                                        for t, v in zip(a["translation"][:2], a["velocity"])]
+                a["translation"] = fn_translation(a, time_lag)
                 a["FN"] = True
                 a["token"] = token
                 a["ref_detection_score"] = float(dec_np["fn_ref"][n])
@@ -173,15 +162,13 @@ def lane_schedule(scene_lengths: list[int], batch: int) -> list[list]:
     return rows
 
 
-class EvalLanes:
+class EvalLanes(LaneStep):
     """The scene-batched eval step (runner.py:167-245) on the model's
-    device: B scene lanes advance one frame each per step. The trunk runs
-    once per frame (`frame_features`, every index built on the device:
-    12 sorted_lookup + 21 gather_conv per step), the affinity head scores
-    each lane's frame against its carried descriptors and boxes, and the
-    decision rules take the lanes as a leading axis. A lane that resets
-    starts its scene: its carried descriptors, boxes and n_prev count as
-    zero. n_prev is carried on the host, as n_curr is given.
+    device: the lane step (`infer.LaneStep`) of B scene lanes, one frame
+    each per step, with every index built on the device (12 sorted_lookup
+    + 21 gather_conv per step), and the decision rules as its tail (span
+    step.decide). A lane that resets starts its scene: its carried
+    descriptors, boxes and n_prev count as zero.
 
     A step takes either voxel grids built on the host or raw points, which
     `voxelize_lanes` turns into the same grids on the model's device under
@@ -189,17 +176,12 @@ class EvalLanes:
     size, range, caps and `sort_voxels`' row order; every frame padded to
     max_voxels, padded rows masked)."""
 
+    _STEP_SPAN = None  # the eval's spans are eval.*: its steps open none
+
     def __init__(self, model, batch: int, fp_thresh: float = 0.7,
                  decision_thresh: float = 0.5, pipeline=None):
-        self.model, self.batch = model, batch
-        self.device = model.device
-        self.fp_thresh, self.decision_thresh = fp_thresh, decision_thresh
+        super().__init__(model, batch, fp_thresh, decision_thresh)
         self.pipeline = pipeline
-        cfg = model.cfg
-        self._prev_feat = torch.zeros(
-            (batch, cfg.max_obj, cfg.num_point * cfg.share_conv_channel), device=self.device)
-        self._prev_boxes = torch.zeros((batch, cfg.max_obj, 11), device=self.device)
-        self._n_prev = np.zeros((batch,), np.int64)
 
     def step_chunk(self, frames: dict, resets, n_currs) -> StepOutput:
         """T steps in one call: frames' FRAME_KEYS arrays are (T, B, ...)
@@ -211,21 +193,10 @@ class EvalLanes:
         device across the T steps (the JAX lax.scan); the (T, B, 6, N)
         decision rows come back as one StepOutput (`array()`), not fetched
         until asked."""
-        rows = []
-        for reset, n_curr in zip(np.asarray(resets, bool), np.asarray(n_currs, np.int64)):
-            rows.append(np.stack([reset, np.where(reset, 0, self._n_prev), n_curr]))
-            self._n_prev = n_curr
-        with annotate("step.upload"):
-            # the per-lane scalars of all T steps in one host-to-device copy
-            sc = upload(np.stack(rows).astype(np.float32), self.device)
-            f = _frame_on(frames, self.device)
-            if "points" in frames:
-                points = upload(frames["points"], self.device)
-        if "points" in frames:
-            f.update(self._voxelize(points, frames["offsets"], frames["lanes"]))
-        packed = [self._step({k: v[t] for k, v in f.items()}, sc[t])
-                  for t in range(sc.shape[0])]
-        return StepOutput(torch.stack(packed), self.model.cfg.max_obj)
+        f, sc = self._upload(frames, n_currs, resets)
+        if "points" in f:
+            f.update(self._voxelize(f.pop("points"), frames["offsets"], frames["lanes"]))
+        return StepOutput(self._steps(f, sc), self.model.cfg.max_obj)
 
     def _voxelize(self, points: torch.Tensor, offsets, lanes) -> dict:
         """The (T, B, ...) voxel arrays of the lanes' clouds, built on the
@@ -242,25 +213,11 @@ class EvalLanes:
         return {k: a.reshape(lanes.shape + a.shape[1:]) for k, a in
                 zip(("voxels", "coordinates", "num_points", "voxels_valid"), arrays)}
 
-    def _step(self, f: dict, sc: torch.Tensor) -> torch.Tensor:
-        """One step on device tensors, sc the (3, B) [reset, n_prev, n_curr]
-        lane scalars; advances the carry, returns the (B, 6, N) rows."""
-        rz = (sc[0] > 0.5)[:, None, None]
-        with torch.no_grad():
-            prev_feat = torch.where(rz, 0.0, self._prev_feat)
-            prev_boxes = torch.where(rz, 0.0, self._prev_boxes)
-            with annotate("step.trunk"):
-                curr_feat = self.model.frame_features(f)
-            with annotate("step.affinity"):
-                m1, m2 = self.model.affinity_step(prev_boxes, f["det_boxes"], prev_feat,
-                                                  curr_feat)
-            with annotate("step.decide"):
-                dec = apply_decision_rules(m1, m2, sc[1].to(torch.int32), sc[2].to(torch.int32),
-                                           fp_thresh=self.fp_thresh,
-                                           decision_thresh=self.decision_thresh)
-                packed = _decision_rows(dec)
-        self._prev_feat, self._prev_boxes = curr_feat, f["det_boxes"]
-        return packed
+    def _tail(self, m1, m2, boxes, counts, dev) -> torch.Tensor:
+        """The (B, 6, N) decision rows."""
+        with annotate("step.decide"):
+            return _decision_rows(apply_decision_rules(
+                m1, m2, *counts, fp_thresh=self.fp_thresh, decision_thresh=self.decision_thresh))
 
 
 def run_affinity_eval_batched(model, dataset, batch: int = 8, fp_thresh: float = 0.7,
@@ -295,18 +252,7 @@ def run_affinity_eval_batched(model, dataset, batch: int = 8, fp_thresh: float =
     accumulates the same parts' host seconds under "read", "step" and
     "assemble"."""
 
-    def timed(part, fn, *args):
-        """fn(*args) in span eval.<part>, which measures the interval in a
-        profiler's trace; where timings is given, its host seconds also go
-        to timings[part]."""
-        with annotate("eval." + part):
-            if timings is None:
-                return fn(*args)
-            t0 = time.perf_counter()
-            out = fn(*args)
-            timings[part] = timings.get(part, 0.0) + time.perf_counter() - t0
-            return out
-
+    timed = functools.partial(_timed, timings, "eval.")
     meta = timed("read", dataset.metadata)
     scenes: list[list[int]] = []
     for i, m in enumerate(meta):
@@ -416,23 +362,10 @@ def track(predictions: dict, frames: list[dict], max_age: int = 4, hungarian: bo
         last_ts = fr["timestamp"]
         outputs = tracker.step_centertrack(predictions.get(token, []), time_lag)
         annos = []
+        score = "ref_detection_score" if refine_confidence or merged else "detection_score"
         for item in outputs:
-            if item["active"] == 0:
-                continue
-            a = {
-                "sample_token": token,
-                "translation": list(item["translation"]),
-                "size": list(item["size"]),
-                "rotation": list(item["rotation"]),
-                "velocity": list(item["velocity"]),
-                "tracking_id": str(item["tracking_id"]),
-                "tracking_name": item["detection_name"],
-                "tracking_score": item["detection_score"],
-                "attribute_name": item.get("attribute_name"),
-            }
-            if refine_confidence or merged:
-                a["tracking_score"] = item["ref_detection_score"]
-            annos.append(a)
+            if item["active"] != 0:
+                annos.append(anno_from(item, token, item["tracking_id"], item[score]))
         nusc_annos["results"][token] = annos
     fps = len(frames) / max(time.time() - start, 1e-9)
     nusc_annos["meta"] = dict(RESULT_META)

@@ -36,18 +36,20 @@ class TrackTable(NamedTuple):
     used: torch.Tensor  # (CAP,) bool
 
     @staticmethod
-    def empty(cap: int, device) -> "TrackTable":
+    def empty(cap: int, device, lanes: int | None = None) -> "TrackTable":
+        """An empty table of `cap` slots, or `lanes` of them on a lane axis."""
         z = dict(device=device)
+        s = (cap,) if lanes is None else (lanes, cap)
         return TrackTable(
-            ct=torch.zeros((cap, 2), **z),
-            tracking=torch.zeros((cap, 2), **z),
-            cls=torch.full((cap,), -1, dtype=torch.int32, **z),
-            tid=torch.zeros((cap,), dtype=torch.int32, **z),
-            age=torch.zeros((cap,), dtype=torch.int32, **z),
-            active=torch.zeros((cap,), dtype=torch.int32, **z),
-            ref_score=torch.zeros((cap,), **z),
-            dead=torch.zeros((cap,), dtype=torch.bool, **z),
-            used=torch.zeros((cap,), dtype=torch.bool, **z),
+            ct=torch.zeros(s + (2,), **z),
+            tracking=torch.zeros(s + (2,), **z),
+            cls=torch.full(s, -1, dtype=torch.int32, **z),
+            tid=torch.zeros(s, dtype=torch.int32, **z),
+            age=torch.zeros(s, dtype=torch.int32, **z),
+            active=torch.zeros(s, dtype=torch.int32, **z),
+            ref_score=torch.zeros(s, **z),
+            dead=torch.zeros(s, dtype=torch.bool, **z),
+            used=torch.zeros(s, dtype=torch.bool, **z),
         )
 
 

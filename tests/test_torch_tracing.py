@@ -2,7 +2,8 @@
 profiler does nothing, the trunk's cap counters per lane on both routes of
 the index builds, the eval's spans around reading (the dataset's data.*
 spans inside eval.read) and the serving step's step.frame, step.upload and
-step.fetch."""
+step.fetch; and the aten operations each stepper dispatches a step, held at
+or below the counts the steppers had before they shared one lane step."""
 import os
 
 import numpy as np
@@ -12,7 +13,7 @@ from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from shasta_tpu_torch.data.synthetic import make_batch, write_split_config, write_track_split
-from shasta_tpu_torch.infer import ScenePipeline
+from shasta_tpu_torch.infer import BatchedScenePipeline, MultiClassScenePipeline, ScenePipeline
 from shasta_tpu_torch.models import ShastaConfig, ShastaModel
 from shasta_tpu_torch.ops import sparse as sp
 from shasta_tpu_torch.plans import frame_plans
@@ -210,3 +211,67 @@ def test_step_frame_spans_its_upload_and_the_fetch():
     with _cpu_profile() as prof:
         out.tid, out.used  # noqa: B018: the first field read fetches, the second reuses
     assert len(_spans(prof, "step.fetch")) == 1
+
+
+def _stepper(kind):
+    """(a stepper at SMALL, one step of it as f(reset)): the step feeds two
+    lanes or classes of 600 voxel slots and 4 dets, lane 0 starting its
+    scene where reset is set."""
+    cfg = ShastaConfig(**SMALL)
+    frames = [make_batch(cfg, num_voxels_cap=600, n_dets=4, seed=s) for s in (1, 2)]
+    keys = ("voxels", "num_points", "coordinates", "voxels_valid", "det_boxes")
+    two = {k: np.concatenate([f[k] for f in frames]) for k in keys}
+    torch.manual_seed(0)
+    model = ShastaModel(cfg, device="cpu")
+    if kind == "scene":
+        pipe = ScenePipeline(model, cls_id=0)
+        one = {k: frames[0][k] for k in keys}
+
+        def step(reset):
+            if reset:
+                pipe.reset()
+            return pipe.step_frame(one, 4, 0.5)
+    elif kind == "batched":
+        pipe = BatchedScenePipeline(model, cls_id=0, batch=2)
+
+        def step(reset):
+            return pipe.step_frames(two, [4, 4], [reset, False], [0.5, 0.5])
+    elif kind == "multiclass":
+        small = ShastaModel(ShastaConfig(**dict(SMALL, max_obj=5)), device="cpu")
+        pipe = MultiClassScenePipeline({"car": model, "pedestrian": small}, device="cpu")
+        arrays = {k: frames[0][k] for k in keys[:4]}
+        boxes = {"car": (frames[0]["det_boxes"], 4),
+                 "pedestrian": (frames[1]["det_boxes"][:, :5], 4)}
+
+        def step(reset):
+            if reset:
+                pipe.reset()
+            return pipe.dispatch_frame(arrays, boxes, 0.5)
+    else:
+        pipe = EvalLanes(model, 2)
+        chunk = {k: v[None] for k, v in two.items()}
+
+        def step(reset):
+            return pipe.step_chunk(chunk, [[reset, False]], [[4, 4]])
+    return pipe, step
+
+
+# aten operations of one step (steady, lane 0 reset) on the tree before
+# the lane step was written once: torch 2.13 on the CPU, _stepper's setting
+PARENT_OPS = {"scene": (2399, 2411), "batched": (2451, 2451), "multiclass": (2523, 2553),
+              "eval": (2043, 2043)}
+
+
+@pytest.mark.parametrize("kind", sorted(PARENT_OPS))
+def test_one_step_dispatches_no_more_operations_than_before(kind):
+    """The host sets the pace of the serving streams: a step may not gain
+    aten operations unnoticed. Each stepper's step, after a warm-up step,
+    counted with no lane starting a scene and with lane 0 starting one."""
+    _, step = _stepper(kind)
+    step(True)
+    counts = []
+    for reset in (False, True):
+        with Ops() as ops:
+            step(reset)
+        counts.append(len(ops.ops))
+    assert all(c <= p for c, p in zip(counts, PARENT_OPS[kind])), (counts, PARENT_OPS[kind])

@@ -5,7 +5,7 @@
 
 Phases (any failure ends the run with a non-zero exit code):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build all seven CUDA kernels from shasta_tpu_torch/csrc (one nvcc per
+  2. build all eight CUDA kernels from shasta_tpu_torch/csrc (one nvcc per
      source, in parallel);
   3. hold rulebook_conv and keyed_conv against their plain PyTorch
      versions on the card at the B=1 step's shapes (bench-scale frame:
@@ -84,7 +84,11 @@ Phases (any failure ends the run with a non-zero exit code):
      exact; 14a. voxelize_lanes on one row of car.eval8 (8 clouds of ~220k
      points, the car grid, rows in key order) byte for byte the host
      voxelizer and its plain version, timed against its bytes bound, the
-     plain version on the card and the host voxelizer;
+     plain version on the card and the host voxelizer; 14b. the scan
+     tracker's greedy kernel (greedy_rows) on gated tracker distances of the
+     serving shapes (180 rows x 900 slots, 1 and 7 lanes) equal to the plain
+     loop, element for element, timed against its bytes bound beside the
+     plain loop (its device operations counted, its host enqueue time);
   15. serve a synthetic preprocessed split (data.synthetic.write_track_split:
      2 scenes x 8 frames at the full car configuration, ~70k voxels a frame
      from a key cloud and 9 sweeps) with the port's CLIs on the card:
@@ -203,7 +207,9 @@ from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16, 17, 18,
 19, 20 and 22, each counted from 0 just before it, dense_conv's among
 them: 15 a frame, step, pair or batch on the f32 paths of phases 15-19, 14
 a train step and a BEVMap frame, 20 a pillar frame, 0 on the bf16 steps;
-times from phases 3-3d, 8, 15-18, 20 and 21);
+greedy_rows's: 1 a serving step, whatever its lanes or classes, on phases
+4, 6, 9, 11, 12, 15, 18, 19 and 22, 0 on the others; times from phases
+3-3d, 8, 14b, 15-18, 20 and 21);
 the last is {"ok": true, "device": {...}}. Imports nothing of JAX or of the
 JAX package.
 """
@@ -630,8 +636,9 @@ def phase_multiclass(pipe, frame, class_boxes, counted, n_frames):
           f"classes at {[round(x, 3) for x in runs]} frames/s (median {fps:.3f}); "
           f"launches {launches}")
     want = {k.__name__: 0 for k in counted}
-    want.update(rulebook_conv=11 * n_frames, keyed_conv=10 * n_frames)
-    check(launches == want, f"expected 11 + 10 trunk launches per multi-class frame, got {launches}")
+    want.update(rulebook_conv=11 * n_frames, keyed_conv=10 * n_frames, greedy_rows=n_frames)
+    check(launches == want, f"expected 11 + 10 trunk launches and 1 greedy_rows (every class "
+                            f"at once) per multi-class frame, got {launches}")
     C, N = len(pipe.max_obj), pipe.n_max
     with torch.no_grad():
         feat, b = pipe._prev_feat[:, 0], pipe._prev_boxes[:, 0]
@@ -767,9 +774,9 @@ def phase_unplanned(model, frame, planned_outs, kernels):
     check(frame_plans.calls == 0, f"the unplanned step called the host planner "
                                   f"{frame_plans.calls} times")
     want = {k.__name__: 0 for k in kernels}
-    want.update(sorted_lookup=12 * n, gather_conv=21 * n)
-    check(launches == want, f"expected 12 sorted_lookup + 21 gather_conv launches per "
-                            f"unplanned frame, got {launches}")
+    want.update(sorted_lookup=12 * n, gather_conv=21 * n, greedy_rows=n)
+    check(launches == want, f"expected 12 sorted_lookup + 21 gather_conv + 1 greedy_rows "
+                            f"launches per unplanned frame, got {launches}")
     with torch.no_grad():
         feat = model.frame_features(nop)
         m1, m2 = model.affinity_step(nop["det_boxes"], nop["det_boxes"], feat, feat)
@@ -847,7 +854,7 @@ def phase_chunk(model, frame, model4, frame4, kernels):
         same_outputs(At(got4, t), want4[t], f"4-lane chunk step {t}")
     for name, n in (("B=1", launches), (f"{LANES} lanes", launches4)):
         want_l = {k.__name__: 0 for k in kernels}
-        want_l.update(sorted_lookup=12 * T, gather_conv=21 * T)
+        want_l.update(sorted_lookup=12 * T, gather_conv=21 * T, greedy_rows=T)
         check(n == want_l, f"{name} chunk launches {n}")
     print(f"phase 12: step_chunk of {T} frames == {T} single steps (ids, used, keep, fn exact; "
           f"ref at 1e-5) at B=1 without plans and at {LANES} lanes; launches {launches}, "
@@ -977,6 +984,111 @@ def phase_voxelize_lanes(dev):
     return dict(ms=ms, bound_ms=bound_ms, bound_by="bytes", plain_ms=plain_ms,
                 host_ms=host_ms, clouds=L, points=int(tp.shape[0]), voxels=voxels,
                 max_abs_err=0.0)
+
+
+def tracker_dist(lanes: int, seed: int, n_obj: int = 90, cap: int = 900):
+    """(lanes, 2 n_obj, cap) f32 numpy: the dist that
+    scan_tracker.step_frames_core builds and hands to the assignment, gates,
+    class match, used mask and all, on a random table whose used slots sit
+    near the frame's dets (lane l tracks class l), with FN rows near the kept
+    rows, so rows compete (on the CPU; the serving shapes by default)."""
+    import numpy as np
+    import torch
+
+    from shasta_tpu_torch.infer import default_tracker_params
+    from shasta_tpu_torch.tracker import scan_tracker as st
+
+    rng = np.random.default_rng(seed)
+    B, N = lanes, 2 * n_obj
+    cls = np.arange(B, dtype=np.int32)[:, None]
+    det_ct = rng.uniform(-50, 50, (B, n_obj, 2))
+    det_ct = np.concatenate([det_ct, det_ct + rng.normal(0, 0.8, det_ct.shape)], 1)
+    valid = rng.random((B, N)) < 0.7
+    tab_ct = rng.uniform(-50, 50, (B, cap, 2))
+    tab_ct[:, :N] = det_ct + rng.normal(0, 1.0, det_ct.shape)
+    used = rng.random((B, cap)) < np.where(np.arange(cap) < N, 0.6, 0.15)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))  # noqa: E731
+    table = st.TrackTable.empty(cap, "cpu", B)._replace(
+        ct=f32(tab_ct), cls=i32(np.where(used, cls, -1)), used=torch.from_numpy(used))
+    dets = st.FrameDets(
+        ct=f32(det_ct), velocity=f32(rng.normal(0, 1, (B, N, 2))),
+        cls=i32(np.where(valid, cls, -1)), score=f32(rng.uniform(0.2, 1, (B, N))),
+        ref_score=f32(rng.uniform(0, 1, (B, N))),
+        newborn=torch.from_numpy(rng.random((B, N)) < 0.3),
+        dead=torch.zeros((B, N), dtype=torch.bool), valid=torch.from_numpy(valid))
+    seen = []
+    real = st.greedy_assign
+    st.greedy_assign = lambda d: seen.append(d.clone()) or real(d)
+    try:
+        st.step_frames_core(table, torch.zeros(B, dtype=torch.int32), dets,
+                            f32(np.full(B, 0.5)), default_tracker_params())
+    finally:
+        st.greedy_assign = real
+    return seen[0].numpy()
+
+
+def phase_greedy(dev):
+    """Phase 14b: greedy_rows at the serving shapes (180 x 900, 1 and 7
+    lanes, the dist step_frames_core builds) equal to the plain loop, timed
+    (CUDA events, median of 10) against its bytes bound beside the plain
+    loop on the card, with the host's time to enqueue each and the plain
+    loop's device operations counted. (One launch a served frame is counted
+    on every serving path: phases 4, 6, 9, 11, 12, 15, 18, 19 and 22.)
+    Returns the kernel's record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from shasta_tpu_torch.ops.kernels.greedy import greedy_rows
+    from shasta_tpu_torch.timing import HBM_BYTES_PER_S, median_ms
+    from shasta_tpu_torch.tracker.greedy import THRESH, greedy_assign, greedy_assign_plain
+
+    def host_ms(fn):
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    shapes = {}
+    for lanes in (1, 7):
+        host = tracker_dist(lanes, 240 + lanes)
+        d = torch.from_numpy(host).to(dev)
+        want = greedy_assign_plain(torch.from_numpy(host))
+        n0 = greedy_rows.launches
+        got = greedy_assign(d)
+        torch.cuda.synchronize()
+        check(greedy_rows.launches == n0 + 1, "greedy_assign did not launch greedy_rows once")
+        check(torch.equal(got.cpu(), want), f"greedy_rows differs from the plain loop at "
+                                            f"{lanes} lanes")
+        check(torch.equal(greedy_assign_plain(d).cpu(), want),
+              f"the plain loop on the card differs from the CPU's at {lanes} lanes")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            greedy_assign_plain(d)
+            torch.cuda.synchronize()
+        plain_ops = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+        nbytes = d.numel() * 4 + got.numel() * 8
+        rec = dict(ms=median_ms(lambda: greedy_assign(d)),
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                   # one call a timing: ten calls' ~9,000 launches would outrun the
+                   # queue of pending launches and time the host's enqueue instead
+                   plain_ms=statistics.median(
+                       median_ms(lambda: greedy_assign_plain(d), reps=1) for _ in range(5)),
+                   host_ms=host_ms(lambda: greedy_assign(d)),
+                   plain_host_ms=host_ms(lambda: greedy_assign_plain(d)),
+                   plain_device_ops=plain_ops, matched=int((want >= 0).sum()),
+                   candidates=int((host < THRESH).sum()), max_abs_err=0.0)
+        shapes[f"{lanes}x{host.shape[1]}x{host.shape[2]}"] = rec
+        print(f"phase 14b: greedy_rows at {lanes} lanes of {host.shape[1]} x {host.shape[2]} "
+              f"({rec['candidates']} entries below THRESH, {rec['matched']} rows matched) == "
+              f"the plain loop; card {rec['ms']:.4f} ms (bound {rec['bound_ms']:.4f} ms by "
+              f"{nbytes / 1e6:.2f} MB), plain {rec['plain_ms']:.4f} ms over {plain_ops} device "
+              f"operations; host enqueue {rec['host_ms']:.4f} ms, plain {rec['plain_host_ms']:.3f}"
+              f" ms")
+    return dict(shapes=shapes)
 
 
 def phase_box_ops(dev):
@@ -1133,9 +1245,11 @@ def phase_serving(kernels, smi):
     args = ["--config", cfg_paths["car"], "--checkpoint", ckpts["car"], "--out", out]
     result, launches = counted(kernels, lambda: track_scene.main(args))
     want = {k.__name__: 0 for k in kernels}
-    want.update(sorted_lookup=12 * n, gather_conv=21 * n, dense_conv=NECK_CONVS * n)
+    want.update(sorted_lookup=12 * n, gather_conv=21 * n, dense_conv=NECK_CONVS * n,
+                greedy_rows=n)
     check(launches == want, f"serving CLI: expected 12 sorted_lookup + 21 gather_conv + "
-                            f"{NECK_CONVS} dense_conv launches per frame, got {launches}")
+                            f"{NECK_CONVS} dense_conv + 1 greedy_rows launches per frame, got "
+                            f"{launches}")
     with open(out) as f:
         check(json.load(f) == result, "serving CLI: the file differs from the result")
     check(list(result["results"]) == sp["tokens"], "serving CLI: tokens out of order")
@@ -1175,8 +1289,8 @@ def phase_serving(kernels, smi):
     mc, launches_mc = counted(kernels, lambda: track_multiclass.main(
         ["--classes", "car,pedestrian", "--config_dir", root, "--checkpoints",
          os.path.join(root, "{cls}.pth"), "--out", out_mc]))
-    check(launches_mc == want, f"multi-class CLI: expected 12 + 21 + {NECK_CONVS} launches "
-                               f"per frame (one trunk for both classes), "
+    check(launches_mc == want, f"multi-class CLI: expected 12 + 21 + {NECK_CONVS} + 1 launches "
+                               f"per frame (one trunk and one assignment for both classes), "
                                f"got {launches_mc}")
     names = {a["tracking_name"] for v in mc["results"].values() for a in v}
     check(list(mc["results"]) == sp["tokens"] and names <= {"car", "pedestrian"} and names,
@@ -1977,10 +2091,10 @@ def phase_chain(kernels, smi):
     serve_fps = n_serve / stage_s["track_scene"]
     want = {k.__name__: 0 for k in kernels}
     want.update(sorted_lookup=12 * n_serve, gather_conv=21 * n_serve,
-                dense_conv=NECK_CONVS * n_serve)
+                dense_conv=NECK_CONVS * n_serve, greedy_rows=n_serve)
     check(launches == want, f"track_scene over the chain's tree: expected 12 sorted_lookup + 21 "
-                            f"gather_conv + {NECK_CONVS} dense_conv launches per frame, got "
-                            f"{launches}")
+                            f"gather_conv + {NECK_CONVS} dense_conv + 1 greedy_rows launches per "
+                            f"frame, got {launches}")
     check(list(result["results"]) == [i["token"] for i in infos[:n_serve]],
           "track_scene over the chain's tree: tokens out of order")
     annos = [a for v in result["results"].values() for a in v]
@@ -2238,9 +2352,10 @@ def phase_waymo(kernels, smi):
     serve_s = time.perf_counter() - t0
     want = {k.__name__: 0 for k in kernels}
     want.update(sorted_lookup=12 * SERVE_FRAMES, gather_conv=21 * SERVE_FRAMES,
-                dense_conv=NECK_CONVS * SERVE_FRAMES)
+                dense_conv=NECK_CONVS * SERVE_FRAMES, greedy_rows=SERVE_FRAMES)
     check(launches == want, f"track_scene --render: expected 12 sorted_lookup + 21 gather_conv "
-                            f"+ {NECK_CONVS} dense_conv launches per frame, got {launches}")
+                            f"+ {NECK_CONVS} dense_conv + 1 greedy_rows launches per frame, got "
+                            f"{launches}")
     check(list(result["results"]) == sp["tokens"], "track_scene --render: tokens out of order")
     render = {}
     if have_mpl:
@@ -2824,9 +2939,9 @@ def phase_pillars(kernels, smi):
     args = ["--config", cfg_path, "--checkpoint", ckpt, "--out", os.path.join(root, "t.json")]
     result, launches = counted(kernels, lambda: track_scene.main(args))
     want = {k.__name__: 0 for k in kernels}
-    want["dense_conv"] = PILLAR_CONVS * n
-    check(launches == want, f"pillar trunk: expected {PILLAR_CONVS} dense_conv launches a "
-                            f"frame and no other kernel, got {launches}")
+    want.update(dense_conv=PILLAR_CONVS * n, greedy_rows=n)
+    check(launches == want, f"pillar trunk: expected {PILLAR_CONVS} dense_conv and 1 greedy_rows "
+                            f"launches a frame and no other kernel, got {launches}")
     check(list(result["results"]) == sp["tokens"], "pillar trunk: tokens out of order")
     ids = [{a["tracking_id"] for a in result["results"][t]} for t in sp["tokens"]]
     carried = sum(len(a & b) for a, b in zip(ids, ids[1:]))
@@ -2963,7 +3078,8 @@ def main(argv=None) -> int:
     from shasta_tpu_torch.infer import FRAME_KEYS, BatchedScenePipeline, ScenePipeline
     from shasta_tpu_torch.models import ShastaConfig, ShastaModel
     from shasta_tpu_torch.ops.kernels import (block_conv, block_extract, build, dense_conv,
-                                              gather_conv, lookup, voxelize, window_conv)
+                                              gather_conv, greedy, lookup, voxelize,
+                                              window_conv)
     from shasta_tpu_torch.plans import attach_plans, frame_plans
     from shasta_tpu_torch.profile_step import (CAR, bench_frame, car_setup, multiclass_setup,
                                                without_plans)
@@ -2997,7 +3113,7 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f} s")
     kernels = (block_conv.rulebook_conv, window_conv.keyed_conv, lookup.sorted_lookup,
                gather_conv.gather_conv, block_extract.block_extract, dense_conv.dense_conv,
-               voxelize.voxelize_lanes)
+               voxelize.voxelize_lanes, greedy.greedy_rows)
     path_launches = {}  # main path -> {kernel: launches in its run}
 
     # bench-scale frame, its host plans and the bf16 model (bench.py:39-41,121-148)
@@ -3047,8 +3163,9 @@ def main(argv=None) -> int:
           f"{[round(x, 3) for x in fps_runs]} frames/s (median {fps:.3f}); "
           f"launches {launches}")
     want = {k.__name__: 0 for k in kernels}
-    want.update(rulebook_conv=11 * n_frames, keyed_conv=10 * n_frames)
-    check(launches == want, f"expected 11 + 10 kernel launches per frame, got {launches}")
+    want.update(rulebook_conv=11 * n_frames, keyed_conv=10 * n_frames, greedy_rows=n_frames)
+    check(launches == want, f"expected 11 + 10 trunk launches and 1 greedy_rows per frame, "
+                            f"got {launches}")
     with torch.no_grad():
         feat = model.frame_features(frame)
         m1, m2 = model.affinity_step(frame["det_boxes"], frame["det_boxes"], feat, feat)
@@ -3102,9 +3219,9 @@ def main(argv=None) -> int:
           f"{[round(x, 3) for x in sps_runs]} frames/s (median {fps4:.3f}); "
           f"launches {launches6}")
     want = {k.__name__: 0 for k in kernels}
-    want.update(sorted_lookup=12 * n_steps, gather_conv=21 * n_steps)
-    check(launches6 == want,
-          f"expected 12 sorted_lookup + 21 gather_conv launches per step, got {launches6}")
+    want.update(sorted_lookup=12 * n_steps, gather_conv=21 * n_steps, greedy_rows=n_steps)
+    check(launches6 == want, f"expected 12 sorted_lookup + 21 gather_conv + 1 greedy_rows "
+                             f"launches per step, got {launches6}")
     with torch.no_grad():
         feat = model4.frame_features(frame4)
         m1, m2 = model4.affinity_step(frame4["det_boxes"], frame4["det_boxes"], feat, feat)
@@ -3198,6 +3315,7 @@ def main(argv=None) -> int:
     # 14. device box ops
     phase_box_ops(dev)
     vox = phase_voxelize_lanes(dev)
+    greedy = phase_greedy(dev)
 
     # 15. a split served by the CLIs
     path_launches["15: serving CLI"], gather_paths[SERVE_LABEL], serving = phase_serving(
@@ -3302,6 +3420,15 @@ def main(argv=None) -> int:
                "10 CUDA-event-timed calls; plain: voxelize_lanes_plain on the card; host: "
                "voxelize_frame over the 8 clouds, host clock; library: none",
         **vox})
+    by_path = {p: n["greedy_rows"] for p, n in path_launches.items() if n["greedy_rows"]}
+    out_kernels.append({
+        "name": "greedy_rows", "route": "cuda", "source": "shasta_tpu_torch/csrc/greedy.cu",
+        "replaces": "none: the JAX package's lax.scan (shasta_tpu/tracker/greedy.py)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "per": "one greedy_assign call over gated tracker distances, the median of 10 "
+               "CUDA-event-timed calls; plain: greedy_assign_plain (a loop over rows) on the "
+               "card; host: the host's time to enqueue one call; library: none",
+        **greedy})
     print(json.dumps({"frames_per_s": fps, "frames_per_s_runs": fps_runs,
                       "b1_no_plans_frames_per_s": fps_nop,
                       "b1_no_plans_frames_per_s_runs": fps_nop_runs,

@@ -23,7 +23,7 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("block_conv", "window_conv", "lookup", "gather_conv", "block_extract", "dense_conv",
-           "voxelize")
+           "voxelize", "greedy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

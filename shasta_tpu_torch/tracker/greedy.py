@@ -1,18 +1,22 @@
 """Greedy assignment: the port of shasta_tpu/tracker/greedy.py.
 
-Row-order argmin with column invalidation (track_utils.py:3-14), twice:
+Row-order argmin with column invalidation (track_utils.py:3-14), on the
+host and on the device:
 - `greedy_assign_np`, the numpy host version the host trackers
   (tracker/pub_tracker.py) call (greedy.py:18-30);
-- `greedy_assign`, kept on the device (greedy.py:32-44): a Python loop
-  over rows whose body only enqueues tensor ops, with no host read-back.
-  A leading lane axis (the JAX jax.vmap over scenes, infer.py:450-453) is
-  written out: each row's `min` and column invalidation run for all lanes
-  at once, so B lanes cost the launches of one.
+- `greedy_assign` (greedy.py:32-44, the JAX lax.scan, with a leading lane
+  axis for the jax.vmap over scenes, infer.py:450-453): on a CUDA tensor
+  one launch of the hand-written kernel for all lanes
+  (`ops.kernels.greedy.greedy_rows`), on a CPU tensor its plain version
+  `greedy_assign_plain`, a Python loop over rows whose body enqueues a
+  `min` and a column invalidation for all lanes at once.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops.kernels.greedy import greedy_rows
 
 INVALID = 1e18
 THRESH = 1e16
@@ -34,7 +38,7 @@ def greedy_assign_np(dist: np.ndarray) -> np.ndarray:
     return np.array(out, np.int32).reshape(-1, 2)
 
 
-def greedy_assign(dist: torch.Tensor) -> torch.Tensor:
+def greedy_assign_plain(dist: torch.Tensor) -> torch.Tensor:
     """dist (..., N, M), at most one leading lane axis -> (..., N) int64
     column per row, -1 if unmatched. Row i takes the first minimum over the
     columns still free, if it is < THRESH.
@@ -43,6 +47,8 @@ def greedy_assign(dist: torch.Tensor) -> torch.Tensor:
     so the minimum over all columns is the minimum over the free ones
     whenever it is < THRESH, and a row with no free column below THRESH
     matches nothing, as in the JAX scan."""
+    if dist.shape[-1] == 0:  # no column: no row matches
+        return torch.full(dist.shape[:-1], -1, dtype=torch.int64, device=dist.device)
     lanes = dist if dist.dim() == 3 else dist[None]
     B, N, M = lanes.shape
     taken = torch.zeros((B, M), dtype=dist.dtype, device=dist.device)
@@ -54,3 +60,12 @@ def greedy_assign(dist: torch.Tensor) -> torch.Tensor:
         taken.scatter_add_(1, cols[i, :, None], ((vals[i] < THRESH) * INVALID)[:, None])
     match = torch.where(vals < THRESH, cols, -1).T
     return match if dist.dim() == 3 else match[0]
+
+
+def greedy_assign(dist: torch.Tensor) -> torch.Tensor:
+    """`greedy_assign_plain`'s result: computed by it for a CPU tensor, by
+    one launch of the kernel for a CUDA tensor (f32, contiguous), which
+    raises on anything else."""
+    if dist.device.type == "cpu":
+        return greedy_assign_plain(dist)
+    return greedy_rows(dist if dist.dim() == 3 else dist[None]).reshape(dist.shape[:-1])

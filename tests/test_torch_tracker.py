@@ -2,6 +2,7 @@
 JAX package on the same inputs (CPU). Ids and flags must match exactly;
 refined scores to 1e-6 (both sides compute them in f32)."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -14,7 +15,9 @@ from shasta_tpu.tracker.greedy import greedy_assign_jax
 from shasta_tpu_torch.infer import default_tracker_params
 from shasta_tpu_torch.tracker import scan_tracker as tst
 from shasta_tpu_torch.tracker.decision import apply_decision_rules
-from shasta_tpu_torch.tracker.greedy import greedy_assign
+from shasta_tpu_torch.tracker.greedy import greedy_assign, greedy_assign_plain
+
+from test_torch_greedy_kernel import JAX_CASES, case as greedy_case
 
 
 def _softmaxes(rng, N, sharp):
@@ -48,14 +51,50 @@ def test_decision_rules_match(seed):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
 
 
-@pytest.mark.parametrize("seed", range(3))
-def test_greedy_assign_matches(seed):
-    rng = np.random.default_rng(seed)
-    d = rng.uniform(0, 5, size=(9, 14)).astype(np.float32)
-    d[rng.random(d.shape) < 0.5] = 1e18
-    d[:, 3] = d[:, 4]  # ties: the first free column wins
-    np.testing.assert_array_equal(greedy_assign(torch.from_numpy(d)).numpy(),
-                                  np.asarray(greedy_assign_jax(jnp.asarray(d))))
+@pytest.mark.parametrize("case", JAX_CASES)
+def test_greedy_assign_matches(case):
+    """The plain loop, and `greedy_assign` on a CPU tensor, against the JAX
+    scan lane by lane (cases: tests/test_torch_greedy_kernel.py): random
+    matrices with ties ("0"-"2"), the dist of the serving step at 180 x 900
+    for 1 and 7 lanes, equal minima, rows with nothing below THRESH, rows
+    whose candidates earlier rows took, M of 45 and 1500, negative values;
+    no row or no column: every row unmatched."""
+    d = greedy_case(case)
+    lanes = d if d.ndim == 3 else d[None]
+    if 0 in lanes.shape:
+        want = np.full(lanes.shape[:2], -1)
+    else:
+        want = np.asarray(jax.vmap(greedy_assign_jax)(jnp.asarray(lanes)))
+    want = want.reshape(d.shape[:-1])
+    assert (want >= 0).any() or 0 in d.shape
+    for fn in (greedy_assign_plain, greedy_assign):
+        got = fn(torch.from_numpy(d))
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=fn.__name__)
+
+
+def test_greedy_assign_on_the_cpu_is_the_plain_loop():
+    """A CPU tensor takes the plain route: no kernel launch, nothing counted
+    under tracker.greedy_launches while a profiler records; a row holding a
+    NaN matches nothing (the loop's min is NaN), as the kernel copies; the
+    kernel's entry refuses a CPU tensor."""
+    from shasta_tpu_torch.ops.kernels.greedy import greedy_rows
+    from shasta_tpu_torch.utils import profiler
+
+    d = torch.from_numpy(greedy_case("nan"))
+    launches = greedy_rows.launches
+    profiler.reset_counters()
+    try:
+        with torch.profiler.profile():
+            got = greedy_assign(d)
+            assert "tracker.greedy_launches" not in profiler.counters()
+    finally:
+        profiler.reset_counters()
+    assert greedy_rows.launches == launches
+    assert torch.equal(got, greedy_assign_plain(d))
+    assert (got[0, 3] == -1) and (got[1, 9:11] == -1).all() and (got >= 0).sum() > 10
+    with pytest.raises(ValueError, match="CUDA"):
+        greedy_rows(d)
 
 
 def _frame_dets(rng, N, prev_ct):

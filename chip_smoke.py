@@ -199,17 +199,25 @@ Phases (any failure ends the run with a non-zero exit code):
      a 2 x 6-frame split at 60,000 x 20 pillar slots through
      tools.track_scene, 20 dense_conv launches a frame and nothing else
      (counted), its map by the kernel route against `_run`, one traced
-     frame's spans, counters and the kernels under step.neck, frames/s.
+     frame's spans, counters and the kernels under step.neck, frames/s;
+  23. the MVP trunk served (phase_mvp): configs/nusc/mvp/car.py over 4
+     points frames of the benchmark's mvp_stream mix (~260k rows padded to
+     300,000, 160,000 voxel slots) through ScenePipeline.step_frame, 12
+     sorted_lookup, 21 gather_conv, 15 dense_conv and 1 greedy_rows a
+     frame and nothing else (counted), a frame's lookups and convs against
+     their plain versions (conv_input 21 -> 16 on the scalar loads), one
+     traced frame's spans, dynvox.* and trunk.cap counters and the device
+     ms under step.dynamic_voxel, frames/s.
 With --before CSRC, every f32 path's convs are also timed on gather_conv
 built from that directory (a redesign's parent), in turns with this build.
 The line before the last is {"kernels": [...]} (launches per main path
 from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16, 17, 18,
-19, 20 and 22, each counted from 0 just before it, dense_conv's among
-them: 15 a frame, step, pair or batch on the f32 paths of phases 15-19, 14
-a train step and a BEVMap frame, 20 a pillar frame, 0 on the bf16 steps;
-greedy_rows's: 1 a serving step, whatever its lanes or classes, on phases
-4, 6, 9, 11, 12, 15, 18, 19 and 22, 0 on the others; times from phases
-3-3d, 8, 14b, 15-18, 20 and 21);
+19, 20, 22 and 23, each counted from 0 just before it, dense_conv's among
+them: 15 a frame, step, pair or batch on the f32 paths of phases 15-19
+and 23, 14 a train step and a BEVMap frame, 20 a pillar frame, 0 on the
+bf16 steps; greedy_rows's: 1 a serving step, whatever its lanes or
+classes, on phases 4, 6, 9, 11, 12, 15, 18, 19, 22 and 23, 0 on the
+others; times from phases 3-3d, 8, 14b, 15-18, 20, 21 and 23);
 the last is {"ok": true, "device": {...}}. Imports nothing of JAX or of the
 JAX package.
 """
@@ -339,11 +347,11 @@ CONV_GROUPS = ("conv_input", "res0", "down1", "res1", "down2", "res2", "down3", 
 
 
 def phase_gather_kernels(label, run):
-    """Phases 3b-3d, 15-18 and 20: the 12 sorted_lookup and 21 gather_conv
-    calls that `run()` makes (one unplanned trunk pass: the 4-lane step, the
-    B=1 step without plans, the two-frame forward, a served split's frame,
-    an 8-lane eval step, a train step or cache batch, a frame of the chain's
-    tree, BEVMap's frame),
+    """Phases 3b-3d, 15-18, 20 and 23: the 12 sorted_lookup and 21
+    gather_conv calls that `run()` makes (one unplanned trunk pass: the
+    4-lane step, the B=1 step without plans, the two-frame forward, a
+    served split's frame, an 8-lane eval step, a train step or cache batch,
+    a frame of the chain's tree, BEVMap's frame, an MVP points frame),
     each against its plain version on its own arguments (a conv also on
     seeded f32 and bf16 features at its gather table), a second run of each
     dtype (the same bits) and the times (per path: the sum over its calls).
@@ -2883,6 +2891,30 @@ def phase_neck(smi):
     return res
 
 
+def traced_spans(prof_dir):
+    """The events of the one trace under prof_dir and its step.* spans:
+    (events, {name: [(start, end) us, ...]})."""
+    files = [os.path.join(r, f) for r, _, fs in os.walk(prof_dir) for f in fs]
+    check(len(files) == 1, f"trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("step."):
+            spans[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+    return events, spans
+
+
+def kernels_in(events, span):
+    """(name, device ms) of the trace's kernels whose launch lies inside the span."""
+    t_a, t_b = span
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and t_a <= e["ts"] <= t_b
+                and "correlation" in e.get("args", {})}
+    return [(e["name"], e["dur"] / 1e3) for e in events
+            if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in launched]
+
+
 PILLAR_SCENES, PILLAR_FRAMES = 2, 6
 PILLAR_LABEL = "pillar trunk, track_scene"
 
@@ -2988,29 +3020,14 @@ def phase_pillars(kernels, smi):
           and counts.get("pillars.slots") == [2 * 60000]
           and counts.get("neck.kernel_convs") == 2 * PILLAR_CONVS,
           f"pillar trunk: counters {counts}, filled pillars {kept[:2]}")
-    files = [os.path.join(r, f) for r, _, fs in os.walk(prof_dir) for f in fs]
-    check(len(files) == 1, f"trace wrote {files}")
-    with open(files[0]) as f:
-        events = json.load(f)["traceEvents"]
-    spans = collections.defaultdict(list)
-    for e in events:
-        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("step."):
-            spans[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+    events, spans = traced_spans(prof_dir)
     check(len(spans["step.pillars"]) == 2 and not spans["step.sparse_trunk"]
           and all(any(a <= p and q <= b for a, b in spans["step.trunk"])
                   for p, q in spans["step.pillars"]),
           f"pillar trunk: spans {dict(spans)}")
 
-    def kernels_in(span):  # the kernels whose launch lies inside the span
-        t_a, t_b = span
-        launched = {e["args"]["correlation"] for e in events
-                    if e.get("cat") in ("cuda_runtime", "cuda_driver") and t_a <= e["ts"] <= t_b
-                    and "correlation" in e.get("args", {})}
-        return [(e["name"], e["dur"] / 1e3) for e in events
-                if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in launched]
-
-    in_neck = kernels_in(spans["step.neck"][-1])
-    in_pillars = kernels_in(spans["step.pillars"][-1])
+    in_neck = kernels_in(events, spans["step.neck"][-1])
+    in_pillars = kernels_in(events, spans["step.pillars"][-1])
     n_dense = sum("dense_conv" in k for k, _ in in_neck)
     library = sorted({k for k, _ in in_neck if "dense_conv" not in k
                       and re.search("cudnn|conv|fft|gemm|gemv", k, re.I)})
@@ -3041,6 +3058,144 @@ def phase_pillars(kernels, smi):
           f"{[round(x, 3) for x in runs]} frames/s (median {fps:.3f}) ({smi}); "
           f"{nums['seconds']:.1f} s")
     return launches, nums
+
+
+MVP_FRAMES = 4
+MVP_LABEL = "MVP trunk, step_frame"
+
+
+def phase_mvp(kernels, smi):
+    """23. the MVP trunk served: configs/nusc/mvp/car.py (CenterPoint-MVP's
+    dynamic virtual-point reader and 21-wide sparse trunk, the VoxelNet
+    neck and shared conv, under ShaSTA's car head and tracker) built by
+    tools.common.build_model on the card, over MVP_FRAMES points frames of
+    the benchmark's mvp_stream mix (trackbench/gen/mvp.py: ~260,000 rows
+    padded to 300,000, voxelized on the card into 160,000 slots), through
+    ScenePipeline.step_frame (f32): the launches counted from 0 just
+    before (12 sorted_lookup, 21 gather_conv, 15 dense_conv and 1
+    greedy_rows a frame, no other kernel), ids carried over frames; a
+    frame's 12 lookups and 21 convs against their plain versions
+    (phase_gather_kernels: conv_input 21 -> 16 on that frame's voxels and
+    gather rows, the scalar-load route); one traced frame, after another:
+    step.dynamic_voxel inside step.trunk and before step.sparse_trunk, the
+    dynvox.* counters (no voxel dropped), every trunk.cap stage keeping its
+    whole demand, the device ms under step.dynamic_voxel; and the step's
+    frames/s over the frames in memory. Returns (launches, the gather
+    records, numbers)."""
+    import shutil
+
+    import torch
+
+    from shasta_tpu_torch.device import upload
+    from shasta_tpu_torch.tools.common import build_model, build_pipeline
+    from shasta_tpu_torch.utils import Config, profiler
+    from trackbench.gen.mvp import mvp_scenes
+    from trackbench.reference.pipelines import class_boxes, frame_lag
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg = Config.fromfile(os.path.join(repo, "configs", "nusc", "mvp", "car.py"))
+    model = build_model(cfg, "cuda", seed=23)
+    check((model.cfg.reader, model.cfg.num_input_features, model.cfg.max_voxels)
+          == ("dynamic", 21, 160000), f"MVP trunk: built {model.cfg}")
+    with torch.no_grad():  # random heads are near uniform and fire no decision: sharpen
+        sd = model.state_dict()
+        sd["aff.10.weight"].mul_(10.0)
+        sd["aff.10.bias"].mul_(10.0)
+        sd["aff.10.bias"][-2:].add_(5.0)
+    pipe = build_pipeline(cfg, model)
+    with open(os.path.join(repo, "trackbench", "traffic", "mvp_stream.json")) as f:
+        mix = json.load(f)
+    t0 = time.perf_counter()
+    (scene,) = mvp_scenes(23, dict(mix, scenes=1, frames=MVP_FRAMES), dict(cfg.point_pipeline),
+                          {"car": cfg.max_objects})
+    made_s = time.perf_counter() - t0
+    frames = []
+    for fr in scene:
+        boxes, n_curr = class_boxes(fr, "car", cfg.max_objects)
+        frames.append((dict(cloud=fr["cloud"][None], cloud_valid=fr["cloud_valid"][None],
+                            det_boxes=boxes[None]), n_curr, frame_lag(fr, ["car"])))
+    rows = [int(fr["cloud_valid"].sum()) for fr in scene]
+    check(scene[0]["cloud"].shape == (300000, 16) and all(250000 < n < 300000 for n in rows),
+          f"MVP trunk: frames of {scene[0]['cloud'].shape} rows, {rows} valid")
+
+    def serve():
+        pipe.reset()
+        return [pipe.step_frame(*f) for f in frames]
+
+    # the frames through the step, counted
+    serve()  # warm-up
+    outs, launches = counted(kernels, serve)
+    n = len(frames)
+    want = {k.__name__: 0 for k in kernels}
+    want.update(sorted_lookup=12 * n, gather_conv=21 * n, dense_conv=NECK_CONVS * n,
+                greedy_rows=n)
+    check(launches == want, f"MVP trunk: expected 12 sorted_lookup, 21 gather_conv, "
+                            f"{NECK_CONVS} dense_conv and 1 greedy_rows launches a frame, "
+                            f"got {launches}")
+    ids = [set(o.tid[o.used].tolist()) for o in outs]
+    carried = sum(len(a & b) for a, b in zip(ids, ids[1:]))
+    check(all(ids) and carried > 0, f"MVP trunk: ids a frame {[len(i) for i in ids]}, "
+                                    f"{carried} carried")
+    print(f"phase 23: ScenePipeline.step_frame, MVP trunk on cuda: {n} frames of "
+          f"{rows} valid rows (made in {made_s:.1f} s); launches {launches}; {carried} ids "
+          f"carried over frames")
+
+    # a frame's trunk kernels against their plain versions
+    frame = {k: upload(frames[1][0][k], "cuda") for k in ("cloud", "cloud_valid")}
+    gather = phase_gather_kernels(MVP_LABEL, lambda: pipe.model.bev_single(frame))
+    del frame
+
+    # one traced frame, after another
+    def step(f):
+        pipe.step_frame(*f).tid
+        torch.cuda.synchronize()
+
+    prof_dir = os.path.join(repo, "work_dirs", "chip_smoke_mvp", "trace")
+    pipe.reset()
+    profiler.reset_counters()
+    with profiler.trace(prof_dir):
+        step(frames[0])
+        step(frames[1])
+    counts = profiler.counters()
+    profiler.reset_counters()
+    caps = {k[len("trunk.cap."):-len(".demand")]: (v, counts[k[:-len("demand")] + "kept"])
+            for k, v in counts.items() if k.startswith("trunk.cap.") and k.endswith(".demand")}
+    check(counts.get("dynvox.points") == [rows[0] + rows[1]]
+          and counts.get("dynvox.slots") == [2 * 160000] and counts.get("dynvox.dropped") == [0]
+          and 160000 < counts["dynvox.voxels"][0] < 2 * 160000
+          and counts.get("neck.kernel_convs") == 2 * NECK_CONVS
+          and len(caps) == 4 and all(d == k for d, k in caps.values()),
+          f"MVP trunk: counters {counts}, valid rows {rows[:2]}")
+    events, spans = traced_spans(prof_dir)
+    shutil.rmtree(os.path.dirname(prof_dir), ignore_errors=True)
+    vox, trunk = spans["step.dynamic_voxel"], spans["step.trunk"]
+    check(len(vox) == 2 and len(spans["step.sparse_trunk"]) == 2
+          and all(any(a <= p and q <= b for a, b in trunk) for p, q in vox)
+          and all(q <= p2 for (_, q), (p2, _) in zip(vox, spans["step.sparse_trunk"])),
+          f"MVP trunk: spans {dict(spans)}")
+    in_vox = kernels_in(events, vox[-1])
+    vox_dev_ms = sum(ms for _, ms in in_vox)
+    print(f"phase 23: a traced frame: step.dynamic_voxel inside step.trunk, before "
+          f"step.sparse_trunk; counters {counts}; under step.dynamic_voxel {len(in_vox)} "
+          f"kernels, {vox_dev_ms:.4f} device ms")
+
+    # the step's frames/s over the frames in memory
+    runs = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        serve()[-1].tid
+        torch.cuda.synchronize()
+        runs.append(n / (time.perf_counter() - t0))
+    fps = statistics.median(runs)
+    nums = dict(frames=n, valid_rows=rows, launches=launches, ids_carried=carried,
+                counters=counts, dynvox_kernels=len(in_vox), dynvox_dev_ms=vox_dev_ms,
+                frames_per_s=fps, frames_per_s_runs=runs,
+                seconds=time.perf_counter() - t_phase)
+    print(f"phase 23: {TIMED_RUNS} runs of {n} frames from memory at "
+          f"{[round(x, 3) for x in runs]} frames/s (median {fps:.3f}) ({smi}); "
+          f"{nums['seconds']:.1f} s")
+    return launches, gather, nums
 
 
 def bound_of(rec) -> tuple[float, str]:
@@ -3349,6 +3504,9 @@ def main(argv=None) -> int:
     # 22. the pillar trunk served
     path_launches[f"22: {PILLAR_LABEL}"], pillars = phase_pillars(kernels, smi)
 
+    # 23. the MVP trunk served
+    path_launches[f"23: {MVP_LABEL}"], gather_paths[MVP_LABEL], mvp = phase_mvp(kernels, smi)
+
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
                              "shasta_tpu/ops/pallas/block_conv.py:117", "B=1 frame with plans"),
            "keyed_conv": ("shasta_tpu_torch/csrc/window_conv.cu",
@@ -3437,7 +3595,7 @@ def main(argv=None) -> int:
                       "classes7_frames_per_s": fps7, "classes7_frames_per_s_runs": fps7_runs,
                       "classes7_peak_device_gib": peak_gb, "serving": serving,
                       "eval_flow": eval_flow, "training": training, "chain": chain,
-                      "waymo": waymo, "zoo": zoo, "neck": neck, "pillars": pillars,
+                      "waymo": waymo, "zoo": zoo, "neck": neck, "pillars": pillars, "mvp": mvp,
                       "card": smi, "host": host,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out_kernels}))

@@ -38,7 +38,7 @@ from .core.bilinear import sample_bev_features
 from .core.boxes import box_points_5
 from .device import resolve_device, upload
 from .models.affinity import AffinityNet
-from .models.shasta import ShastaModel, trunk_bev
+from .models.shasta import CLOUD_KEYS, ShastaModel, trunk_bev
 from .multiclass import stack_class_heads
 from .tracker import scan_tracker as st
 from .tracker.decision import apply_decision_rules
@@ -163,10 +163,11 @@ def _packed(tid, used, ref, keep, fn) -> torch.Tensor:
 
 def _frame_on(frame: dict, dev) -> dict:
     """The frame's arrays the step reads (FRAME_KEYS, plan_*, the eval's
-    points) on dev; host arrays go up through `upload`, so a step fed
-    from the host does not wait for the card's queued work."""
+    points, the dynamic reader's CLOUD_KEYS) on dev; host arrays go up
+    through `upload`, so a step fed from the host does not wait for the
+    card's queued work."""
     return {k: upload(v, dev) for k, v in frame.items()
-            if k in FRAME_KEYS or k == "points" or k.startswith("plan_")}
+            if k in FRAME_KEYS or k == "points" or k in CLOUD_KEYS or k.startswith("plan_")}
 
 
 def _per_lane(mask: torch.Tensor, a, b: torch.Tensor) -> torch.Tensor:
@@ -296,9 +297,12 @@ class BatchedScenePipeline(LaneStep):
                                        dtype=torch.int32, device=self.device)
 
     def step_frames(self, frame: dict, n_curr, reset, time_lags) -> StepOutput:
-        """frame: batched arrays (B, ...) of numpy arrays or tensors; n_curr
-        (B,) real det counts; reset (B,) new-scene flags; time_lags (B,).
-        Returns a StepOutput whose fields have a leading (B,) axis."""
+        """frame: batched arrays (B, ...) of numpy arrays or tensors (the
+        voxel arrays, or for the dynamic reader the points frame: rows
+        `cloud` (B, N, C) and their mask `cloud_valid` (B, N)) and
+        det_boxes; n_curr (B,) real det counts; reset (B,) new-scene flags;
+        time_lags (B,). Returns a StepOutput whose fields have a leading
+        (B,) axis."""
         return StepOutput(self._frame(frame, n_curr, reset, time_lags), self.model.cfg.max_obj)
 
     def step_chunk(self, frames: dict, n_currs, resets, time_lags) -> StepOutput:
@@ -335,7 +339,9 @@ class ScenePipeline(BatchedScenePipeline):
 
     def step_frame(self, frame: dict, n_curr: int, time_lag: float) -> StepOutput:
         """frame: fixed-shape single-frame batch (B=1) of numpy arrays or
-        tensors, with or without plan_* arrays."""
+        tensors, with or without plan_* arrays; for the dynamic reader the
+        points frame `cloud` (1, N, C), `cloud_valid` (1, N) in place of
+        the voxel arrays."""
         return StepOutput(self._frame(frame, [n_curr], [False], [time_lag])[0],
                           self.model.cfg.max_obj)
 

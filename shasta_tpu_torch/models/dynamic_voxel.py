@@ -9,8 +9,16 @@ order); overflow past `max_voxels` is dropped. The range test is
 inclusive at both ends; a point that floors to coord == grid size is
 dropped, as the JAX module drops it. Keys are int32 with the int32 max
 as the sentinel of a dropped point, as there.
+
+Nothing on the path waits for the card: the range and voxel size go to
+the device once per device (`_on`), and every shape is fixed by the rows
+and `max_voxels`. With `demand=True` `dynamic_voxelize_virtual` also
+returns the number of distinct voxels its points fall in, before the
+capacity cuts (0-d, on the rows' device).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -19,10 +27,17 @@ __all__ = ["dynamic_voxelize", "dynamic_voxelize_virtual"]
 _BIG = torch.iinfo(torch.int32).max
 
 
+@functools.lru_cache(maxsize=None)
+def _on(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Host numbers as a tensor on `device`, copied there once: later calls
+    take it with no copy from the host, which would wait for the card."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _keys_and_mask(points, valid, pc_range, voxel_size):
     """Linear z-major voxel key per point + in-range mask + grid size."""
-    cr = torch.as_tensor(pc_range, dtype=points.dtype, device=points.device)
-    vs = torch.as_tensor(voxel_size, dtype=points.dtype, device=points.device)
+    cr = _on(tuple(map(float, pc_range)), points.dtype, points.device)
+    vs = _on(tuple(map(float, voxel_size)), points.dtype, points.device)
     gs = torch.round((cr[3:] - cr[:3]) / vs).to(torch.int32)  # xyz
     keep = valid & ((points[:, :3] >= cr[:3]) & (points[:, :3] <= cr[3:])).all(1)
     c = torch.floor((points[:, :3] - cr[:3]) / vs).to(torch.int32)
@@ -33,8 +48,9 @@ def _keys_and_mask(points, valid, pc_range, voxel_size):
 
 def _segment_mean(feats, key, max_voxels: int):
     """Compact the unique keys into [0, max_voxels) slots and mean `feats`.
-    Returns (mean (max_voxels, C), slot_key (max_voxels,), valid): slot
-    order is ascending key (a stable sort), overflow past max_voxels is
+    Returns (mean (max_voxels, C), slot_key (max_voxels,), valid, head
+    (N,): the first point of each distinct key in sorted order). Slot
+    order is ascending key (a stable sort); overflow past max_voxels is
     dropped (valid.sum() == max_voxels shows it)."""
     sk, order = torch.sort(key, stable=True)
     prev = torch.cat([sk.new_full((1,), -1), sk[:-1]])
@@ -52,7 +68,7 @@ def _segment_mean(feats, key, max_voxels: int):
     slot_key[torch.where(head & in_cap, vi, max_voxels)] = sk.to(torch.int32)
     valid = cnt > 0
     mean = acc / cnt.clamp_min(1)[:, None].to(feats.dtype)
-    return mean, slot_key[:max_voxels], valid
+    return mean, slot_key[:max_voxels], valid, head
 
 
 def _decode_coords(slot_key, valid, gs):
@@ -70,11 +86,12 @@ def dynamic_voxelize(points, valid, pc_range, voxel_size, max_voxels: int):
     valid: (N,) mask. Returns (voxels (max_voxels, C) per-voxel point
     means, coords zyx (max_voxels, 3) int32, valid (max_voxels,))."""
     key, gs = _keys_and_mask(points, valid, pc_range, voxel_size)
-    mean, slot_key, vvalid = _segment_mean(points, key, max_voxels)
+    mean, slot_key, vvalid, _ = _segment_mean(points, key, max_voxels)
     return mean, _decode_coords(slot_key, vvalid, gs), vvalid
 
 
-def dynamic_voxelize_virtual(points, valid, pc_range, voxel_size, max_voxels: int):
+def dynamic_voxelize_virtual(points, valid, pc_range, voxel_size, max_voxels: int,
+                             demand: bool = False):
     """The fixed-shape `voxelization_virtual` (:19-70).
 
     Rows carry a type indicator at channel -2 (1 real / 0 painted / -1
@@ -102,7 +119,7 @@ def dynamic_voxelize_virtual(points, valid, pc_range, voxel_size, max_voxels: in
     ], dim=1)
 
     key, gs = _keys_and_mask(points, valid, pc_range, voxel_size)
-    mean, slot_key, vvalid = _segment_mean(padded, key, max_voxels)
+    mean, slot_key, vvalid, head = _segment_mean(padded, key, max_voxels)
 
     indicator = mean[:, 21]  # real-point fraction per voxel
     mix = (indicator > 0) & (indicator < 1)
@@ -111,4 +128,5 @@ def dynamic_voxelize_virtual(points, valid, pc_range, voxel_size, max_voxels: in
     denom_r = torch.where(mix, indicator, one)[:, None]
     denom_v = torch.where(mix, 1.0 - indicator, one)[:, None]
     vox = torch.cat([vox[:, :5] / denom_r, vox[:, 5:] / denom_v], dim=1)
-    return vox, _decode_coords(slot_key, vvalid, gs), vvalid
+    out = (vox, _decode_coords(slot_key, vvalid, gs), vvalid)
+    return out + (head.sum(),) if demand else out

@@ -8,9 +8,15 @@ capacity with a validity mask. The module is built in eval mode with
 every parameter frozen, as serving runs it; training (train/loop.py) turns
 on the grads and BN modes it needs.
 
-Two trunks, by `ShastaConfig.reader`:
+Three trunks, by `ShastaConfig.reader`:
 - "voxelnet" (the default, ShaSTA's configs): voxel means, the sparse 3D
   trunk (`backbone`), the RPN neck and the shared conv;
+- "dynamic" (CenterPoint-MVP, configs/nusc/mvp/car.py): det3d's
+  DynamicVoxelEncoder (virtual route) over each lane's raw point rows
+  (`cloud`, padded, with the mask `cloud_valid`), voxelized on the
+  device into `max_voxels` slots, 21 features a voxel, then the
+  sparse trunk, the neck and the shared conv as "voxelnet". Serving
+  only: train/loop.py refuses it;
 - "pillars" (CenterPoint-PP, configs/nusc/pp/car.py): det3d's
   PillarFeatureNet (`reader`) over the frame's pillars, scattered onto
   grid_shape's (ny, nx) canvas, then the neck (three blocks at published
@@ -30,6 +36,7 @@ from ..utils import profiler
 from ..utils.profiler import annotate
 from .affinity import AffinityNet
 from .backbone import SparseBackbone
+from .dynamic_voxel import dynamic_voxelize_virtual
 from .pillars import PillarFeatureNet, point_pillars_scatter
 from .rpn import RPN, SharedConv
 from .vfe import voxel_mean_vfe
@@ -71,10 +78,19 @@ class ShastaConfig:
     us_layer_strides: tuple = (1, 2)
     us_num_filters: tuple = (256, 256)
     neck_input_features: int = 256
+    # the dynamic reader (det3d's DynamicVoxelEncoder, virtual route: MVP's
+    # 16-channel rows, 21 features a voxel): the points' z range, cut into
+    # grid_shape's Z - 1 voxels (x and y are the grid's: pc_start,
+    # voxel_size, grid_shape), and the voxel slots a lane
+    z_range: tuple = (-5.0, 3.0)
+    max_voxels: int = 160000
 
     def __post_init__(self):
-        if self.reader not in ("voxelnet", "pillars"):
-            raise ValueError(f"reader {self.reader!r}: 'voxelnet' or 'pillars'")
+        if self.reader not in ("voxelnet", "pillars", "dynamic"):
+            raise ValueError(f"reader {self.reader!r}: 'voxelnet', 'pillars' or 'dynamic'")
+        if self.reader == "dynamic" and self.num_input_features != 21:
+            raise ValueError("the dynamic reader gives 21 features a voxel, "
+                             f"not num_input_features {self.num_input_features}")
 
 
 class ShastaModel(AffinityNet):
@@ -111,7 +127,8 @@ class ShastaModel(AffinityNet):
     @property
     def trunk_names(self) -> tuple[str, str, str]:
         """The attribute names of the trunk's three modules: the pillar
-        reader or the sparse backbone, the neck, the shared conv."""
+        reader or the sparse backbone (which the dynamic reader feeds),
+        the neck, the shared conv."""
         return ("reader" if self.cfg.reader == "pillars" else "backbone", "neck", "shared_conv")
 
     def pair_tensor(self, batch: dict) -> sp.SparseTensor:
@@ -132,10 +149,11 @@ class ShastaModel(AffinityNet):
         """Shared-conv BEV maps (B, H, W, 64) of the curr and the prev frame
         of B frame pairs, through the trunk once (`pair_tensor`), every
         index built on the device."""
-        B = batch["voxels"].shape[0]
-        if self.cfg.reader == "pillars":  # the curr and prev frames as one batch of 2B
-            frames = {k: torch.cat([batch[k], batch["prev_" + k]]) for k in VOXEL_KEYS}
-            bev = trunk_bev(self.cfg, self.reader, self.neck, self.shared_conv, frames)
+        keys = CLOUD_KEYS if self.cfg.reader == "dynamic" else VOXEL_KEYS
+        B = batch[keys[0]].shape[0]
+        if self.cfg.reader != "voxelnet":  # the curr and prev frames as one batch of 2B
+            frames = {k: torch.cat([batch[k], batch["prev_" + k]]) for k in keys}
+            bev = self.bev_single(frames)
         else:
             bev = _trunk_from_sparse(self.backbone, self.neck, self.shared_conv,
                                      self.pair_tensor(batch), None)
@@ -184,6 +202,9 @@ class ShastaModel(AffinityNet):
 
 
 VOXEL_KEYS = ("voxels", "num_points", "coordinates", "voxels_valid")
+# a frame of raw point rows, the dynamic reader's input: (B, N, C) rows
+# padded to a fixed N, and their (B, N) mask
+CLOUD_KEYS = ("cloud", "cloud_valid")
 
 
 def _voxel_rows(cfg: ShastaConfig, voxels, num_points, coordinates, valid, b_off: int = 0):
@@ -217,7 +238,8 @@ def trunk_bev(cfg: ShastaConfig, first: torch.nn.Module, neck: RPN,
     x], voxels_valid (B, V), all tensors on the trunk's device; for the
     sparse backbone optionally, at B=1, the plan_* arrays of
     shasta_tpu_torch/plans.py (without them every index is built on the
-    device). Row b*V + v carries batch index b."""
+    device). Row b*V + v carries batch index b. The dynamic reader reads
+    cloud (B, N, C) and cloud_valid (B, N) instead (`dynamic_sparse`)."""
     if cfg.reader == "pillars":
         with annotate("step.pillars"):
             canvas = pillar_canvas(cfg, first, frame)
@@ -254,7 +276,11 @@ def pillar_canvas(cfg: ShastaConfig, reader: PillarFeatureNet, frame: dict) -> t
 def frame_sparse(cfg: ShastaConfig, frame: dict) -> tuple[sp.SparseTensor, dict | None]:
     """The sparse tensor of `trunk_bev`'s frame dict (row b*V + v carries
     batch index b) and its host plans (the plan_* arrays without their
-    prefix, B=1 only), or None."""
+    prefix, B=1 only), or None. The dynamic reader voxelizes the frame's
+    clouds in span step.dynamic_voxel, with no plans."""
+    if cfg.reader == "dynamic":
+        with annotate("step.dynamic_voxel"):
+            return dynamic_sparse(cfg, frame["cloud"], frame["cloud_valid"]), None
     B = frame["voxels"].shape[0]
     plans = {k[5:]: v for k, v in frame.items() if k.startswith("plan_")}
     assert B == 1 or not plans, "host plans serve the B=1 step"
@@ -262,3 +288,37 @@ def frame_sparse(cfg: ShastaConfig, frame: dict) -> tuple[sp.SparseTensor, dict 
                                       frame["coordinates"], frame["voxels_valid"]),
                          tuple(cfg.grid_shape), B)
     return st, plans or None
+
+
+def dynamic_sparse(cfg: ShastaConfig, cloud: torch.Tensor, cloud_valid: torch.Tensor
+                   ) -> sp.SparseTensor:
+    """The sparse tensor of B lanes' point rows cloud (B, N, 16), mask
+    cloud_valid (B, N): each lane voxelized on its own into cfg.max_voxels
+    slots by `dynamic_voxelize_virtual` over the grid's x and y and
+    cfg.z_range in the grid's Z - 1 voxels (Z holds det3d's pad row), row
+    b*max_voxels + v carrying lane b. While a profiler
+    records it counts, per lane, `dynvox.points` (valid rows),
+    `dynvox.virtual` (valid rows of type 0 or -1: painted or virtual),
+    `dynvox.voxels` (valid voxels), `dynvox.slots` (max_voxels) and
+    `dynvox.dropped` (voxels past the capacity)."""
+    B, V = cloud.shape[0], cfg.max_voxels
+    (Z, Y, X), (vx, vy), (x0, y0), (z0, z1) = (cfg.grid_shape, cfg.voxel_size, cfg.pc_start,
+                                                cfg.z_range)
+    pc_range = (x0, y0, z0, x0 + X * vx, y0 + Y * vy, z1)
+    size = (vx, vy, (z1 - z0) / (Z - 1))
+    valid = cloud_valid.bool()
+    rec = profiler.recording()
+    lanes = [dynamic_voxelize_virtual(cloud[b], valid[b], pc_range, size, V, demand=rec)
+             for b in range(B)]
+    feats, zyx, vvalid = (torch.cat([lane[i] for lane in lanes]) for i in range(3))
+    bidx = torch.arange(B, dtype=torch.int32, device=feats.device).repeat_interleave(V)
+    st = sp.SparseTensor(feats, torch.cat([bidx[:, None], zyx], 1), vvalid,
+                         tuple(cfg.grid_shape), B)
+    if rec:
+        kept = vvalid.reshape(B, V).sum(1)
+        profiler.count("dynvox.points", valid.sum(1))
+        profiler.count("dynvox.virtual", (valid & (cloud[..., -2] != 1)).sum(1))
+        profiler.count("dynvox.voxels", kept)
+        profiler.count("dynvox.slots", [V] * B)
+        profiler.count("dynvox.dropped", torch.stack([lane[3] for lane in lanes]) - kept)
+    return st

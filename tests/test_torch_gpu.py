@@ -645,3 +645,70 @@ def test_zoo_modules_cuda_equal_cpu():
             for a, b in zip(g[key][:1] + g[key][2:], w[key][:1] + w[key][2:]):
                 torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-5)
     assert int(w[("dynamic_voxelize", 40)][2].sum()) == 40  # the small cap overflows
+
+
+@pytest.mark.gpu
+def test_gather_conv_at_mvp_input_width_on_the_card():
+    """conv_input of the MVP trunk (21 -> 16 over 27 taps; 21 is no multiple
+    of the vector width, so the kernel loads rows scalar by scalar) against
+    its plain version on the card: f32 (3xTF32, TF32 off in the plain
+    version) at 1e-4 x max(1, |out|), bf16 at 2e-2; misses (-1 and rows >=
+    V) and M no multiple of a tile; a second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from shasta_tpu_torch.ops.kernels.gather_conv import gather_conv, gather_conv_plain
+
+    dev = resolve_device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(21)
+    V, M, K, cin, co = 5000, 4001, 27, 21, 16
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        f = torch.randn(V, cin, generator=g).to(dev, dt)
+        w = (torch.randn(K, cin, co, generator=g) / (K * cin) ** 0.5).to(dev, dt)
+        rows = torch.randint(-1, V + 50, (M, K), generator=g, dtype=torch.int32).to(dev)
+        got, want = gather_conv(f, rows, w), gather_conv_plain(f, rows, w)
+        err = float((got - want).abs().max())
+        assert err <= tol * max(1.0, float(want.abs().max())), (dt, err)
+        assert torch.equal(gather_conv(f, rows, w), got), dt
+
+
+@pytest.mark.gpu
+def test_dynamic_reader_at_full_size_cuda_equals_cpu():
+    """The dynamic virtual reader over a frame of the MVP mix (~260k rows
+    padded to 300,000) into 160,000 slots, and at 60,000 slots (which
+    overflow): coordinates, validity and the demanded count exact on the
+    card and on the CPU, the 21 means within 1e-5; with the frame's voxels
+    all kept, each lane of a 2-lane sparse tensor is that lane's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from shasta_tpu_torch.models import ShastaConfig, dynamic_voxelize_virtual
+    from shasta_tpu_torch.models.shasta import dynamic_sparse
+    from trackbench.gen.mvp import mvp_scenes
+    from trackbench.tests.small import load
+
+    resolve_device("cuda")
+    cfg, mix = load("configs", "shasta-car-mvp"), load("traffic", "mvp_stream")
+    frame = mvp_scenes(5, dict(mix, scenes=1, frames=2), cfg["point_pipeline"], {"car": 90})[0][1]
+    m = cfg["model"]
+    box, size = cfg["reader"]["pc_range"], cfg["reader"]["voxel_size"]  # as MVP's config has them
+    rows, valid = torch.from_numpy(frame["cloud"]), torch.from_numpy(frame["cloud_valid"])
+    assert rows.shape == (300000, 16)
+    kept = {}
+    for cap in (160000, 60000):
+        out = {d: dynamic_voxelize_virtual(rows.to(d), valid.to(d), box, size, cap,
+                                           demand=True) for d in ("cuda", "cpu")}
+        (gm, gc, gv, gd), (wm, wc, wv, wd) = out["cuda"], out["cpu"]
+        assert torch.equal(gc.cpu(), wc) and torch.equal(gv.cpu(), wv) and int(gd) == int(wd)
+        torch.testing.assert_close(gm.cpu(), wm, atol=1e-5, rtol=1e-5)
+        assert (int(wv.sum()) == cap) == (cap == 60000) and 60000 < int(wd) < 160000
+        kept[cap] = (wm, wc, wv)
+    mc = ShastaConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in m.items()
+                         if k != "type"})
+    two = dynamic_sparse(mc, torch.stack([rows, rows]).cuda(), torch.stack([valid, valid]).cuda())
+    wm, wc, wv = kept[160000]
+    V = m["max_voxels"]
+    for b in range(2):
+        lane = slice(b * V, (b + 1) * V)
+        assert torch.equal(two.valid[lane].cpu(), wv)
+        assert torch.equal(two.coords[lane].cpu(),
+                           torch.cat([torch.full((V, 1), b, dtype=torch.int32), wc], 1))
+        torch.testing.assert_close(two.feats[lane].cpu(), wm, atol=1e-5, rtol=1e-5)

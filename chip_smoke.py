@@ -207,16 +207,23 @@ Phases (any failure ends the run with a non-zero exit code):
      frame and nothing else (counted), a frame's lookups and convs against
      their plain versions (conv_input 21 -> 16 on the scalar loads), one
      traced frame's spans, dynvox.* and trunk.cap counters and the device
-     ms under step.dynamic_voxel, frames/s.
+     ms under step.dynamic_voxel, frames/s;
+  24. the sparse trunk as one CUDA graph (phase_trunk_graph): the
+     benchmark's car.stream cell over 8 frames of its mix, the eager
+     route and the replays in turns: each frame's time, 12 sorted_lookup
+     and 21 gather_conv a frame either way (counted), and one traced pass
+     of each: step.sparse_trunk's host and device ms a frame, the cap
+     counters alike, one cudaGraphLaunch under each step.sparse_trunk
+     carrying its 12 lookups and 21 convs by correlation.
 With --before CSRC, every f32 path's convs are also timed on gather_conv
 built from that directory (a redesign's parent), in turns with this build.
 The line before the last is {"kernels": [...]} (launches per main path
 from the phases that drive one, 4, 6, 8, 9, 11, 12, 13, 15, 16, 17, 18,
-19, 20, 22 and 23, each counted from 0 just before it, dense_conv's among
+19, 20, 22, 23 and 24, each counted from 0 just before it, dense_conv's among
 them: 15 a frame, step, pair or batch on the f32 paths of phases 15-19
-and 23, 14 a train step and a BEVMap frame, 20 a pillar frame, 0 on the
+and 23-24, 14 a train step and a BEVMap frame, 20 a pillar frame, 0 on the
 bf16 steps; greedy_rows's: 1 a serving step, whatever its lanes or
-classes, on phases 4, 6, 9, 11, 12, 15, 18, 19, 22 and 23, 0 on the
+classes, on phases 4, 6, 9, 11, 12, 15, 18, 19, 22, 23 and 24, 0 on the
 others; times from phases 3-3d, 8, 14b, 15-18, 20, 21 and 23);
 the last is {"ok": true, "device": {...}}. Imports nothing of JAX or of the
 JAX package.
@@ -717,6 +724,129 @@ def phase_small_multiclass(dev_a, dev_b):
             check(relabel.setdefault(int(a), int(b)) == b,
                   f"frame {t}: car id {a} alone maps to two ids")
     check(len(set(relabel.values())) == len(relabel) > 0, "car ids do not relabel 1:1")
+
+
+GRAPH_FRAMES, GRAPH_PASSES = 8, 3
+
+
+def phase_trunk_graph(kernels, smi):
+    """24. the sparse trunk as one CUDA graph (models/trunk_graph.py) at
+    car.stream's size: the benchmark's stream cell (`Cell` of trackbench's
+    stream module) over GRAPH_FRAMES frames of its mix, closed loop, each frame's
+    outputs on the host before the next. In turns, the eager route
+    (trunk_graph.eager()) and the replays, GRAPH_PASSES passes each: the
+    frame's time; launches counted (12 sorted_lookup and 21 gather_conv a
+    frame either way); one traced pass of each: the host and device time of
+    step.sparse_trunk and step.frame a frame (trackbench's reduce_trace, the
+    benchmark's attribution), and in the replayed pass one cudaGraphLaunch
+    inside each step.sparse_trunk whose correlation carries the trunk's 12
+    sorted_lookup and 21 gather_mma kernels (what trunk_roofline.stream
+    reads). Returns (launches of the replayed passes, numbers)."""
+    import contextlib
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from shasta_tpu_torch.models import trunk_graph
+    from shasta_tpu_torch.utils import profiler
+    from trackbench.drivers.stream import Cell
+    from trackbench.harness import reduce_trace
+
+    t_phase = time.perf_counter()
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)), "trackbench")
+    with open(os.path.join(bench, "configs", "shasta-car.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(bench, "traffic", "stream.json")) as f:
+        mix = dict(json.load(f), scenes=1, frames=GRAPH_FRAMES)
+    cell = Cell(cfg, mix, 2147483647 + 26, "cuda")  # its warm-up step captures the graph
+    frames = cell.scenes[0]
+    backbone = cell.pipe.model.backbone
+    check(len(backbone._graphs._graphs) == 1, "trunk graph: the warm-up captured "
+                                              f"{len(backbone._graphs._graphs)} graphs")
+
+    def serve():
+        cell.pipe.reset()
+        lat = []
+        for fr in frames:
+            t0 = time.perf_counter()
+            cell._step(fr)
+            lat.append(time.perf_counter() - t0)
+        return lat
+
+    modes = {"eager": trunk_graph.eager, "graph": contextlib.nullcontext}
+    ms = {m: [] for m in modes}
+    launches = {}
+    for _ in range(GRAPH_PASSES):
+        for m in ("eager", "graph", "graph", "eager"):
+            with modes[m]():
+                lat, launches[m] = counted(kernels, serve)
+            ms[m].append(1e3 * statistics.median(lat))
+    n = GRAPH_FRAMES
+    for m, got in launches.items():
+        want = {k.__name__: 0 for k in kernels}
+        want.update(sorted_lookup=12 * n, gather_conv=21 * n, dense_conv=NECK_CONVS * n,
+                    greedy_rows=n)
+        check(got == want, f"trunk graph, {m}: launches {got}, expected {want}")
+    traced = {}
+    for m in modes:
+        profiler.reset_counters()
+        with modes[m](), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+            serve()
+            torch.cuda.synchronize()
+        counts = profiler.counters()
+        profiler.reset_counters()
+        red = reduce_trace(prof)
+        trunk, frame = red["spans"]["step.sparse_trunk"], red["spans"]["step.frame"]
+        traced[m] = dict(trunk_host_ms=1e3 * trunk["host_s"] / n,
+                         trunk_dev_ms=1e3 * trunk["device_s"] / n,
+                         frame_host_ms=1e3 * frame["host_s"] / n,
+                         replays=counts.get("trunk.graph_replays", 0),
+                         cap_kept=sum(sum(v) for k, v in counts.items()
+                                      if k.startswith("trunk.cap.") and k.endswith(".kept")))
+        if m == "graph":  # one more traced pass: its trace's events
+            prof_dir = os.path.join(os.path.dirname(bench), "work_dirs", "chip_smoke_graph")
+            with profiler.trace(prof_dir):
+                serve()
+                torch.cuda.synchronize()
+            profiler.reset_counters()
+            events, spans = traced_spans(prof_dir)
+            shutil.rmtree(prof_dir, ignore_errors=True)
+            graph_kernels = []
+            for a, b in spans["step.sparse_trunk"]:
+                corr = [e["args"]["correlation"] for e in events
+                        if e.get("cat") == "cuda_runtime"
+                        and e["name"].startswith("cudaGraphLaunch")
+                        and a <= e["ts"] <= b]
+                names = [e["name"] for e in events if e.get("cat") == "kernel"
+                         and e.get("args", {}).get("correlation") in corr]
+                graph_kernels.append((len(corr), sum("sorted_lookup" in x for x in names),
+                                      sum("gather_mma" in x for x in names), len(names)))
+            traced[m]["graph_launches"] = graph_kernels
+    g, e = traced["graph"], traced["eager"]
+    check(g["replays"] == n and e["replays"] == 0,
+          f"trunk graph: {g['replays']} replays traced, eager {e['replays']}")
+    check(g["cap_kept"] == e["cap_kept"] > 0,
+          f"trunk graph: cap counters kept {g['cap_kept']} replayed, {e['cap_kept']} eager")
+    check(all(c == 1 and lk == 12 and gc == 21 for c, lk, gc, _ in g["graph_launches"]),
+          f"trunk graph: under step.sparse_trunk (graph launches, sorted_lookup, gather_mma, "
+          f"kernels) {g['graph_launches']}")
+    check(abs(g["trunk_dev_ms"] - e["trunk_dev_ms"]) <= 0.1 * e["trunk_dev_ms"],
+          f"trunk graph: device ms under step.sparse_trunk {g['trunk_dev_ms']:.3f} replayed, "
+          f"{e['trunk_dev_ms']:.3f} eager")
+    nums = dict(frames=n, frame_ms={m: v for m, v in ms.items()}, traced=traced,
+                seconds=time.perf_counter() - t_phase)
+    print(f"phase 24: car.stream's cell over {n} frames ({smi}): median frame ms eager "
+          f"{[round(x, 3) for x in ms['eager']]}, replayed {[round(x, 3) for x in ms['graph']]}; "
+          f"traced a frame (eager / replayed): step.sparse_trunk host "
+          f"{e['trunk_host_ms']:.3f} / {g['trunk_host_ms']:.3f} ms, device "
+          f"{e['trunk_dev_ms']:.3f} / {g['trunk_dev_ms']:.3f} ms; step.frame host "
+          f"{e['frame_host_ms']:.3f} / {g['frame_host_ms']:.3f} ms; graph launches under "
+          f"step.sparse_trunk {g['graph_launches'][:2]}...; {nums['seconds']:.1f} s")
+    del cell, backbone
+    torch.cuda.empty_cache()
+    return launches["graph"], nums
 
 
 def counted(kernels, run):
@@ -3507,6 +3637,10 @@ def main(argv=None) -> int:
     # 23. the MVP trunk served
     path_launches[f"23: {MVP_LABEL}"], gather_paths[MVP_LABEL], mvp = phase_mvp(kernels, smi)
 
+    # 24. the sparse trunk's CUDA graph at car.stream's size
+    path_launches["24: trunk graph, car.stream's cell"], trunk_graph = phase_trunk_graph(
+        kernels, smi)
+
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
                              "shasta_tpu/ops/pallas/block_conv.py:117", "B=1 frame with plans"),
            "keyed_conv": ("shasta_tpu_torch/csrc/window_conv.cu",
@@ -3596,6 +3730,7 @@ def main(argv=None) -> int:
                       "classes7_peak_device_gib": peak_gb, "serving": serving,
                       "eval_flow": eval_flow, "training": training, "chain": chain,
                       "waymo": waymo, "zoo": zoo, "neck": neck, "pillars": pillars, "mvp": mvp,
+                      "trunk_graph": trunk_graph,
                       "card": smi, "host": host,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out_kernels}))

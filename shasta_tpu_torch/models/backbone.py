@@ -14,7 +14,9 @@ Two routes:
   the split of backbone.py:210-287;
 - without plans (any B): every index is built on the device through
   `sorted_lookup` (12 launches per step) and all 21 convs run
-  `gather_conv`, the JAX B > 1 route (backbone.py:217-226).
+  `gather_conv`, the JAX B > 1 route (backbone.py:217-226). On the card,
+  in eval mode and with no gradient to record, that route is one CUDA
+  graph a call, captured once per input key (models/trunk_graph.py).
 
 The kernels have no backward. A trunk whose parameters require grad, with
 grad mode on, runs the route without plans on the kernels' plain versions,
@@ -28,6 +30,7 @@ import torch
 from torch import nn
 
 from ..ops import sparse as sp
+from .trunk_graph import TrunkGraphs
 
 
 class SparseBN(nn.BatchNorm1d):
@@ -167,6 +170,13 @@ class SparseBackbone(nn.Module):
         for m in self.modules():
             if isinstance(m, SparseBN):
                 m.sync = bn_sync
+        self._graphs = TrunkGraphs()
+
+    def _apply(self, fn, *args, **kwargs):
+        # a graph reads the parameters' memory: one that .to() or the like
+        # replaces leaves every graph stale
+        self._graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
 
     def _stage0(self, st: sp.SparseTensor, idx0, dt):
         """conv_input and res0, which share one index."""
@@ -195,37 +205,60 @@ class SparseBackbone(nn.Module):
         return self.extra_conv(x, _planned(x, self.extra_conv, plans["ex_keys"],
                                            _keyed_strided(x, self.extra_conv)), dt)
 
-    def _built(self, st: sp.SparseTensor, plain: bool = False) -> sp.SparseTensor:
+    def _built(self, st: sp.SparseTensor, plain: bool = False,
+               tally: list | None = None) -> sp.SparseTensor:
         """Any B, no plans: every index built on the device through
         sorted_lookup (4 subm triple + 3 strided triple + 1 strided plain
         + 4 identity compactions) and all 21 convs on gather_conv (plain:
         their plain versions). The stage-0 table takes a stable argsort;
         every strided output set is key-sorted, so later tables need none
         (backbone.py:210-287). While a profiler records, each strided stage
-        counts its set against its cap (trunk.cap.<stage>.*, per lane)."""
+        counts its set against its cap (trunk.cap.<stage>.*, per lane), or
+        into `tally` (`sp.strided_output_set`)."""
         dt = self.dtype
         table = sp.key_table(st)
         x = self._stage0(st, sp.build_subm_index(st, table, plain), dt)
         for name, stage, cap in zip(("conv2", "conv3", "conv4"),
                                     (self.conv2, self.conv3, self.conv4), self.caps):
             x = stage(x, sp.build_strided_plan(x, *stage.geometry(), cap, table, plain,
-                                               name), dt)
+                                               name, tally), dt)
             table = sp.key_table_presorted(x)
             x = _blocks(stage, x, sp.build_subm_index(x, table, plain), dt)
         return self.extra_conv(x, sp.build_strided_plan(
-            x, *self.extra_conv.geometry(), self.caps[3], table, plain, "extra"), dt)
+            x, *self.extra_conv.geometry(), self.caps[3], table, plain, "extra", tally), dt)
 
     def trains(self) -> bool:
         """Whether this call builds a graph through the trunk: grad mode is
         on and a parameter requires grad (the kernels cannot take part)."""
         return torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
 
+    def graphed(self, st: sp.SparseTensor, plans: dict | None) -> bool:
+        """Whether this call runs the route without plans as a CUDA graph:
+        on the card, in eval mode, with no gradient to record (grad mode
+        off, or neither a parameter nor the input requires one)."""
+        return (plans is None and st.feats.is_cuda and not self.training and not self.trains()
+                and not (torch.is_grad_enabled() and st.feats.requires_grad))
+
     def forward(self, st: sp.SparseTensor, plans: dict | None = None) -> torch.Tensor:
         """plans: the host plans of a B=1 frame (shasta_tpu_torch/plans.py),
-        or None to build every index on the device."""
+        or None to build every index on the device. Where `graphed`, the
+        result is a graph's static output, which the next call at the same
+        shapes overwrites: read it before calling the trunk again."""
         if plans is not None and self.trains():
             raise ValueError("host plans serve inference: a trunk that trains runs without")
-        x = self._built(st, self.trains()) if plans is None else self._planned(st, plans)
+        if self.graphed(st, plans):
+            key = (st.feats.shape, st.feats.dtype, st.coords.shape, st.coords.dtype,
+                   st.valid.dtype, st.feats.device, st.batch_size, st.shape, self.caps,
+                   self.dtype)
+            dense = self._graphs(lambda s, tally: self._dense(self._built(s, tally=tally)),
+                                 st, key)
+            if dense is not None:
+                return dense
+        return self._dense(self._built(st, self.trains()) if plans is None
+                           else self._planned(st, plans))
+
+    @staticmethod
+    def _dense(x: sp.SparseTensor) -> torch.Tensor:
         dense = sp.to_dense(x)  # (B, D, H, W, C)
         B, D, H, W, C = dense.shape
         # torch views (N, C, D, H, W) as (N, C*D, H, W): channel c*D + d

@@ -210,7 +210,8 @@ def _strided_candidates(st: SparseTensor, kernel, stride, padding):
 
 
 def strided_output_set(st: SparseTensor, kernel, stride, padding, max_out: int,
-                       plain: bool = False, stage: str | None = None):
+                       plain: bool = False, stage: str | None = None,
+                       tally: list | None = None):
     """The exact spconv output set of a strided conv (ops/sparse.py:325-543,
     global layout) -> (coords (max_out, 4), valid, out_shape): candidate
     keys, sort, head flags; slot j takes the first sorted position where
@@ -218,7 +219,10 @@ def strided_output_set(st: SparseTensor, kernel, stride, padding, max_out: int,
     ascending, deduplicated and truncated to the max_out smallest keys. A
     named `stage` counts its set against the cap per lane, on the device
     (`plans.count_cap`: the head flags by their key's batch index, and of
-    those the first max_out)."""
+    those the first max_out), while a profiler records; with a `tally`
+    list it appends (stage, demand, kept, max_out) there instead, whether
+    or not a profiler records (a captured trunk counts them at each
+    replay)."""
     cand, (OZ, OY, OX) = _strided_candidates(st, kernel, stride, padding)
     s = torch.sort(cand).values
     head = (s != torch.cat([s.new_full((1,), -1), s[:-1]])) & (s != SENTINEL)
@@ -229,7 +233,7 @@ def strided_output_set(st: SparseTensor, kernel, stride, padding, max_out: int,
     VC = s.shape[0]
     out_keys = torch.where(pos < VC, s[pos.clamp(max=VC - 1)], SENTINEL)
     out = decode_strided_keys(out_keys, st.shape, kernel, stride, padding, st.batch_size)
-    if stage is not None and profiler.recording():
+    if stage is not None and (tally is not None or profiler.recording()):
         # keys are batch-major: the heads before lane b + 1's first key
         # number cumsum(head) there, and the cap keeps the max_out first
         s_out = OZ * OY * OX + 1
@@ -237,17 +241,23 @@ def strided_output_set(st: SparseTensor, kernel, stride, padding, max_out: int,
                                                   dtype=s.dtype, device=s.device))
         upto = torch.where(ends > 0, ch[ends - 1], 0)
         zero = upto.new_zeros(1)
-        count_cap(stage, torch.diff(upto, prepend=zero),
+        counts = (stage, torch.diff(upto, prepend=zero),
                   torch.diff(upto.clamp(max=max_out), prepend=zero), max_out)
+        if tally is None:
+            count_cap(*counts)
+        else:
+            tally.append(counts)
     return out
 
 
 def build_strided_plan(st: SparseTensor, kernel, stride, padding, max_out: int,
-                       table, plain: bool = False, stage: str | None = None) -> StridedPlan:
-    """`strided_output_set` (counted under `stage`, if named) and its
-    gather index over `table`, the input's (sorted keys, perm)."""
+                       table, plain: bool = False, stage: str | None = None,
+                       tally: list | None = None) -> StridedPlan:
+    """`strided_output_set` (counted under `stage`, if named, or into
+    `tally`) and its gather index over `table`, the input's (sorted keys,
+    perm)."""
     coords, valid, out_shape = strided_output_set(st, kernel, stride, padding, max_out,
-                                                  plain=plain, stage=stage)
+                                                  plain=plain, stage=stage, tally=tally)
     q = strided_queries(coords, valid, st.shape, kernel, stride, padding)
     if kernel[2] == 3:
         gather = _dx_triples(q, table, st.coords.shape[0], plain)

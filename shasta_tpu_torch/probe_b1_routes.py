@@ -38,6 +38,7 @@ import torch
 from .device import resolve_device
 from .infer import ScenePipeline
 from .models.backbone import SparseBackbone, _blocks
+from .models.trunk_graph import eager
 from .ops import sparse as sp
 from .ops.kernels.lookup import SENTINEL
 
@@ -46,7 +47,8 @@ from .ops.kernels.lookup import SENTINEL
 def recorded(*names):
     """Record the arguments of every call of the named functions of
     ops/sparse.py (the trunk calls its kernels and index builders by these
-    module-level names): yields {name: [positional args, ...]}, in call order."""
+    module-level names): yields {name: [positional args, ...]}, in call order.
+    Inside, the trunk runs its eager route (a graph's replay calls none)."""
     calls = {n: [] for n in names}
     real = {n: getattr(sp, n) for n in names}
 
@@ -59,7 +61,8 @@ def recorded(*names):
     try:
         for n in names:
             setattr(sp, n, recorder(n))
-        yield calls
+        with eager():
+            yield calls
     finally:
         for n, fn in real.items():
             setattr(sp, n, fn)
@@ -86,11 +89,13 @@ def keyed_trunk(bb: SparseBackbone, st: sp.SparseTensor) -> sp.SparseTensor:
 
 @contextlib.contextmanager
 def route(model, name: str):
-    """Run the model's unplanned trunk by `name` ("gather" or "keyed")."""
+    """Run the model's unplanned trunk by `name` ("gather" or "keyed"),
+    eagerly: both routes dispatch each operation from the host."""
     if name == "keyed":
         model.backbone._built = functools.partial(keyed_trunk, model.backbone)
     try:
-        yield
+        with eager():
+            yield
     finally:
         model.backbone.__dict__.pop("_built", None)
 

@@ -712,3 +712,142 @@ def test_dynamic_reader_at_full_size_cuda_equals_cpu():
         assert torch.equal(two.coords[lane].cpu(),
                            torch.cat([torch.full((V, 1), b, dtype=torch.int32), wc], 1))
         torch.testing.assert_close(two.feats[lane].cpu(), wm, atol=1e-5, rtol=1e-5)
+
+
+def _stream_sparse(n, lanes=1, seed=26):
+    """n sparse tensors of `lanes` frames each of car.stream's mix
+    (trackbench's stream generator) on the card, and the car config at the
+    caps the benchmark runs for that many lanes."""
+    import numpy as np
+
+    from shasta_tpu_torch.models import ShastaConfig
+    from shasta_tpu_torch.models.shasta import frame_sparse
+    from trackbench.gen.scenes import stream_scenes
+    from trackbench.harness import caps, model_config
+    from trackbench.tests.small import load
+
+    cfg, mix = load("configs", "shasta-car"), load("traffic", "stream")
+    frames = stream_scenes(seed, dict(mix, scenes=1, frames=n * lanes), cfg["point_pipeline"],
+                           {"car": 90})[0]
+    mc = model_config(ShastaConfig, cfg["model"], **caps(cfg, lanes))
+    keys = ("voxels", "num_points", "coordinates", "voxels_valid")
+    return mc, [frame_sparse(mc, {k: torch.as_tensor(np.stack([f[k] for f in
+                                                                frames[i * lanes:(i + 1) * lanes]]),
+                                                     device="cuda") for k in keys})[0]
+                for i in range(n)]
+
+
+def _trunk_on_card(mc, c_in=5):
+    from shasta_tpu_torch.models import SparseBackbone
+
+    torch.manual_seed(0)
+    return SparseBackbone(c_in, caps=(mc.cap_conv2, mc.cap_conv3, mc.cap_conv4, mc.cap_extra)
+                          ).to("cuda").eval().requires_grad_(False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["car.stream", "8 lanes", "21 channels"])
+def test_trunk_graph_replays_equal_the_eager_route_on_the_card(case):
+    """The trunk's CUDA graph (models/trunk_graph.py) against its eager
+    route, bit for bit, over two frames in turn, twice: the static inputs
+    are refilled and the output is not stale. At car.stream's size (B=1,
+    f32), at 8 lanes (car.eval8's caps) and at the MVP reader's 21 channels
+    in (random features on car.stream's voxels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graph captures CUDA kernels")
+    from shasta_tpu_torch.models import trunk_graph
+
+    resolve_device("cuda")
+    mc, sts = _stream_sparse(2, lanes=8 if case == "8 lanes" else 1)
+    c_in = 21 if case == "21 channels" else 5
+    if c_in != 5:
+        g = torch.Generator(device="cpu").manual_seed(21)
+        sts = [st._replace(feats=torch.randn(st.feats.shape[0], c_in, generator=g).cuda()
+                           * st.valid[:, None]) for st in sts]
+    bb = _trunk_on_card(mc, c_in)
+    with torch.no_grad():
+        with trunk_graph.eager():
+            want = [bb(st).clone() for st in sts]
+        assert not bb._graphs._graphs
+        got = [bb(st).clone() for _ in range(2) for st in sts]
+    assert len(bb._graphs._graphs) == 1
+    assert want[0].abs().max() > 0 and not torch.equal(want[0], want[1])
+    for i, g in enumerate(got):
+        assert torch.equal(g, want[i % 2]), (case, i)
+
+
+def _profiled_trunk(bb, st, eager):
+    """bb(st) under the profiler: (its counters, its sorted_lookup and
+    gather_conv launches)."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from shasta_tpu_torch.models import trunk_graph
+    from shasta_tpu_torch.ops.kernels.gather_conv import gather_conv
+    from shasta_tpu_torch.ops.kernels.lookup import sorted_lookup
+    from shasta_tpu_torch.utils import profiler
+
+    torch.cuda.synchronize()
+    profiler.reset_counters()
+    before = sorted_lookup.launches, gather_conv.launches
+    with (trunk_graph.eager() if eager else contextlib.nullcontext()), torch.no_grad(), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        bb(st)
+        torch.cuda.synchronize()
+    counts = profiler.counters()
+    profiler.reset_counters()
+    return counts, (sorted_lookup.launches - before[0], gather_conv.launches - before[1])
+
+
+@pytest.mark.gpu
+def test_trunk_graph_replays_keep_the_counters_on_the_card():
+    """Under a profiler a replayed frame counts what an eager frame counts:
+    each strided stage's trunk.cap.* per lane, 12 sorted_lookup and 21
+    gather_conv launches, and one trunk.graph_replays; also where the
+    capture itself runs under the profiler (the first call at a key)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graph captures CUDA kernels")
+    resolve_device("cuda")
+    mc, (st0, st1) = _stream_sparse(2)
+    bb = _trunk_on_card(mc)
+    with torch.no_grad():
+        bb(st0)  # the capture
+    want, want_launches = _profiled_trunk(bb, st1, eager=True)
+    assert want_launches == (12, 21)
+    assert {k.split(".")[2] for k in want if k.startswith("trunk.cap.")} == {
+        "conv2", "conv3", "conv4", "extra"}
+    for trunk in (bb, _trunk_on_card(mc)):  # a replay; a capture under the profiler
+        got, launches = _profiled_trunk(trunk, st1, eager=False)
+        assert launches == want_launches
+        assert got.pop("trunk.graph_replays") == 1
+        assert got == want
+
+
+@pytest.mark.gpu
+def test_a_fifth_trunk_key_runs_eagerly_on_the_card():
+    """Four keys are captured; a fifth (another voxel capacity) runs the
+    eager route, counts no replay and launches its 33 kernels; each gives
+    the map of the eager route (the capacities cut only padding rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graph captures CUDA kernels")
+    from shasta_tpu_torch.models import trunk_graph
+
+    resolve_device("cuda")
+    mc, (st,) = _stream_sparse(1)
+    V = st.feats.shape[0]
+    assert not bool(st.valid[V - 64:].any())
+    cut = [st._replace(feats=st.feats[:V - 8 * i], coords=st.coords[:V - 8 * i],
+                       valid=st.valid[:V - 8 * i]) for i in range(trunk_graph.MAX_KEYS + 1)]
+    bb = _trunk_on_card(mc)
+    with torch.no_grad():
+        with trunk_graph.eager():
+            want = bb(st).clone()
+        for s in cut[:-1]:
+            assert torch.equal(bb(s), want)
+    assert len(bb._graphs._graphs) == trunk_graph.MAX_KEYS
+    counts, launches = _profiled_trunk(bb, cut[-1], eager=False)
+    assert "trunk.graph_replays" not in counts and launches == (12, 21)
+    assert len(bb._graphs._graphs) == trunk_graph.MAX_KEYS
+    with torch.no_grad():
+        assert torch.equal(bb(cut[-1]), want)

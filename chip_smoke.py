@@ -214,7 +214,18 @@ Phases (any failure ends the run with a non-zero exit code):
      and 21 gather_conv a frame either way (counted), and one traced pass
      of each: step.sparse_trunk's host and device ms a frame, the cap
      counters alike, one cudaGraphLaunch under each step.sparse_trunk
-     carrying its 12 lookups and 21 convs by correlation.
+     carrying its 12 lookups and 21 convs by correlation;
+  25. the DSVT-P trunk served (phase_dsvt): configs/nusc/dsvt/car.py over
+     4 points frames of the benchmark's dsvt_stream mix (~220k rows padded
+     to 240,000, 26,000 pillar slots) through ScenePipeline.step_frame, 23
+     dense_conv and 1 greedy_rows a frame and nothing else (counted); on a
+     served frame's canvas each of the residual neck's 23 convs (19 in
+     BasicBlocks, 3 deblocks, the plain shared conv) against its plain
+     version and timed with its epilogue (ReLU, residual + ReLU, none), the
+     new epilogues beside the ReLU-only variant on the same conv, the whole
+     neck's 23 launches against `_run`; one traced frame's spans
+     (step.dyn_pillars, step.dsvt > dsvt.partition), dynpillar.*, dsvt.*
+     and neck.kernel_convs counters and device ms, frames/s.
 With --before CSRC, every f32 path's convs are also timed on gather_conv
 built from that directory (a redesign's parent), in turns with this build.
 The line before the last is {"kernels": [...]} (launches per main path
@@ -224,7 +235,7 @@ them: 15 a frame, step, pair or batch on the f32 paths of phases 15-19
 and 23-24, 14 a train step and a BEVMap frame, 20 a pillar frame, 0 on the
 bf16 steps; greedy_rows's: 1 a serving step, whatever its lanes or
 classes, on phases 4, 6, 9, 11, 12, 15, 18, 19, 22, 23 and 24, 0 on the
-others; times from phases 3-3d, 8, 14b, 15-18, 20, 21 and 23);
+others; times from phases 3-3d, 8, 14b, 15-18, 20, 21, 23 and 25);
 the last is {"ok": true, "device": {...}}. Imports nothing of JAX or of the
 JAX package.
 """
@@ -3021,6 +3032,263 @@ def phase_neck(smi):
     return res
 
 
+DSVT_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "trackbench",
+                           "configs", "shasta-car-dsvt.json")
+DSVT_CONVS = 23
+DSVT_FRAMES = 4
+DSVT_LABEL = "DSVT-P trunk, step_frame"
+
+
+def res_neck_calls(neck, shared, x):
+    """[(name, NHWC input, Packed, relu, residual)] of DSVT-P's residual
+    neck and plain shared conv in launch order on x (B, H, W, C), each
+    input made by the plain version."""
+    import torch
+
+    from shasta_tpu_torch.models import rpn
+    from shasta_tpu_torch.ops.kernels import dense_conv as dc
+
+    calls, cat, h = [], [], x
+    for i, (level, de) in enumerate(zip(neck.blocks, neck.deblocks)):
+        for j, blk in enumerate(level):
+            p = [dc.pack(*cbp) for cbp in blk.conv_bns()]
+            ident = h
+            if len(p) == 3:
+                calls.append((f"level{i}.block{j}.downsample", h, p[2], False, None))
+                ident = dc.dense_conv_plain(h, p[2], relu=False)
+            calls.append((f"level{i}.block{j}.conv1", h, p[0], True, None))
+            t = dc.dense_conv_plain(h, p[0])
+            calls.append((f"level{i}.block{j}.conv2", t, p[1], True, ident))
+            h = dc.dense_conv_plain(t, p[1], residual=ident)
+        (cbp,) = rpn._conv_bns(de)
+        p = dc.pack(*cbp)
+        calls.append((f"deblock{i}", h, p, True, None))
+        cat.append(dc.dense_conv_plain(h, p))
+    calls.append(("shared", torch.cat(cat, 3).contiguous(), dc.pack(shared[0], None), False,
+                  None))
+    return calls
+
+
+def phase_dsvt(kernels, smi):
+    """25. the DSVT-P trunk served: configs/nusc/dsvt/car.py (OpenPCDet's
+    dynamic pillar reader, DSVT's four blocks of rotated-set window
+    attention, the canvas, the residual neck and TransFusion-L's plain
+    shared conv, under ShaSTA's car head and tracker) built by
+    tools.common.build_model on the card, over DSVT_FRAMES points frames
+    of the benchmark's dsvt_stream mix (trackbench/gen/dsvt.py: ~220,000
+    rows padded to 240,000, read on the card into 26,000 pillar slots),
+    through ScenePipeline.step_frame (f32): the launches counted from 0
+    just before (23 dense_conv and 1 greedy_rows a frame, no other
+    kernel), ids carried over frames; on a served frame's own canvas
+    (`dsvt_canvas`), each of the neck's 23 convs against its plain version
+    (1e-4 x max(1, |out|)), timed with its epilogue (ReLU; the residual
+    before the ReLU; none) and, where that epilogue is new, by the RPN's
+    ReLU-only variant on the same conv, beside its bound
+    (trackbench/count/dsvt.py); the whole neck's 23 launches (counted)
+    against `_run`, timed; one traced frame, after another: step.dyn_pillars
+    (twice) and step.dsvt inside step.trunk, dsvt.partition inside
+    step.dsvt, the dynpillar.*, dsvt.* and neck.kernel_convs counters
+    against count/dsvt.py's pillars and sets of the frames (no pillar
+    dropped), the 23 dense_conv kernels under step.neck and no library conv
+    or GEMM there, the device ms under each span; and the step's frames/s
+    over the frames in memory. Returns (launches, numbers)."""
+    import re
+    import shutil
+
+    import torch
+
+    from shasta_tpu_torch.device import upload
+    from shasta_tpu_torch.models import rpn
+    from shasta_tpu_torch.models.shasta import dsvt_canvas
+    from shasta_tpu_torch.ops.kernels import dense_conv as dc
+    from shasta_tpu_torch.timing import median_ms
+    from shasta_tpu_torch.tools.common import build_model, build_pipeline
+    from shasta_tpu_torch.utils import Config, profiler
+    from trackbench.count import dsvt as cd
+    from trackbench.count import pillars as cp
+    from trackbench.gen.dsvt import dsvt_scenes
+    from trackbench.reference.pipelines import class_boxes, frame_lag
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg = Config.fromfile(os.path.join(repo, "configs", "nusc", "dsvt", "car.py"))
+    with open(DSVT_CONFIG) as f:
+        m = json.load(f)["model"]
+    model = build_model(cfg, "cuda", seed=25)
+    check((model.cfg.reader, model.cfg.max_pillars, model.cfg.dsvt_blocks,
+           model.cfg.share_conv_channel) == ("dsvt", m["max_pillars"], 4, 128),
+          f"DSVT trunk: built {model.cfg}")
+    with torch.no_grad():  # random heads are near uniform and fire no decision: sharpen
+        sd = model.state_dict()
+        sd["aff.10.weight"].mul_(10.0)
+        sd["aff.10.bias"].mul_(10.0)
+        sd["aff.10.bias"][-2:].add_(5.0)
+    pipe = build_pipeline(cfg, model)
+    with open(os.path.join(repo, "trackbench", "traffic", "dsvt_stream.json")) as f:
+        mix = json.load(f)
+    t0 = time.perf_counter()
+    (scene,) = dsvt_scenes(25, dict(mix, scenes=1, frames=DSVT_FRAMES), dict(cfg.point_pipeline),
+                           {"car": cfg.max_objects})
+    made_s = time.perf_counter() - t0
+    frames = []
+    for fr in scene:
+        boxes, n_curr = class_boxes(fr, "car", cfg.max_objects)
+        frames.append((dict(cloud=fr["cloud"][None], cloud_valid=fr["cloud_valid"][None],
+                            det_boxes=boxes[None]), n_curr, frame_lag(fr, ["car"])))
+    rows = [int(fr["cloud_valid"].sum()) for fr in scene]
+    grid = [cd.frame_pillars(fr, m) for fr in scene]
+    pillars = [len(yx) for _, yx in grid]
+    check(scene[0]["cloud"].shape == (mix["cloud_rows"], 5)
+          and all(150000 < n <= mix["cloud_rows"] for n in rows)
+          and max(pillars) <= m["max_pillars"],
+          f"DSVT trunk: frames of {scene[0]['cloud'].shape} rows, {rows} valid, {pillars} "
+          f"pillars")
+
+    def serve():
+        pipe.reset()
+        return [pipe.step_frame(*f) for f in frames]
+
+    # the frames through the step, counted
+    serve()  # warm-up
+    outs, launches = counted(kernels, serve)
+    n = len(frames)
+    want = {k.__name__: 0 for k in kernels}
+    want.update(dense_conv=DSVT_CONVS * n, greedy_rows=n)
+    check(launches == want, f"DSVT trunk: expected {DSVT_CONVS} dense_conv and 1 greedy_rows "
+                            f"launches a frame and no other kernel, got {launches}")
+    ids = [set(o.tid[o.used].tolist()) for o in outs]
+    carried = sum(len(a & b) for a, b in zip(ids, ids[1:]))
+    check(all(ids) and carried > 0, f"DSVT trunk: ids a frame {[len(i) for i in ids]}, "
+                                    f"{carried} carried")
+    print(f"phase 25: ScenePipeline.step_frame, DSVT trunk on cuda: {n} frames of {rows} valid "
+          f"rows, {pillars} pillars (made in {made_s:.1f} s); launches {launches}; {carried} "
+          f"ids carried over frames")
+
+    # a served frame's canvas through the neck's convs, each against its plain version
+    frame = {k: upload(frames[1][0][k], "cuda") for k in ("cloud", "cloud_valid")}
+    bounds = [cp.conv_least_s(c) * 1e3 for c in cd.neck_convs(m)]
+    recs = []
+    with torch.no_grad():
+        canvas = dsvt_canvas(model.cfg, model.dsvt, frame)
+        calls = res_neck_calls(model.neck, model.shared_conv, canvas)
+        check(len(calls) == DSVT_CONVS == len(bounds), f"DSVT trunk: {len(calls)} neck convs")
+        for (name, h, p, relu, res), bound in zip(calls, bounds):
+            want = dc.dense_conv_plain(h, p, relu=relu, residual=res)
+            got = dc.dense_conv(h, p, relu=relu, residual=res)
+            err = (got - want).abs().max().item()
+            scale = max(1.0, want.abs().max().item())
+            check(err <= 1e-4 * scale, f"DSVT neck {name}: max abs error {err} over "
+                                       f"1e-4 x {scale}")
+            Ho, Wo = dc.out_grid(h, p)
+            rec = dict(name=name, M=Ho * Wo, N=p.w.shape[0], K=p.w.shape[1],
+                       epilogue="relu" if relu and res is None else
+                       "residual+relu" if relu else "none",
+                       ms=median_ms(lambda: dc.dense_conv(h, p, relu=relu, residual=res)),
+                       bound_ms=bound, max_abs_err=err)
+            if rec["epilogue"] != "relu":
+                rec["relu_only_ms"] = median_ms(lambda: dc.dense_conv(h, p))
+            recs.append(rec)
+            del want, got
+        del calls
+        x = canvas.permute(0, 3, 1, 2)
+        neck = lambda: model.shared_conv(model.neck(x))
+        before = dc.dense_conv.launches
+        got = neck()
+        neck_launches = dc.dense_conv.launches - before
+        check(neck_launches == DSVT_CONVS, f"DSVT neck: {neck_launches} dense_conv launches")
+        kernel_route, rpn.kernel_route = rpn.kernel_route, lambda mod, t: False
+        try:
+            want = neck()
+            run_ms = median_ms(neck, reps=5)
+        finally:
+            rpn.kernel_route = kernel_route
+        err = (got - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        check(err <= 1e-4 * scale, f"DSVT neck: max abs error {err} over 1e-4 x {scale}")
+        neck_ms = median_ms(neck)
+        del got, want, x, canvas, frame
+    new = [r for r in recs if "relu_only_ms" in r]
+    neck_nums = dict(convs=recs, launches=neck_launches, neck_ms=neck_ms, run_ms=run_ms,
+                     max_abs_err=err, sum_ms=sum(r["ms"] for r in recs),
+                     sum_bound_ms=sum(bounds), new_epilogues_ms=sum(r["ms"] for r in new),
+                     new_epilogues_relu_only_ms=sum(r["relu_only_ms"] for r in new))
+    print(f"phase 25: a served frame's canvas through the residual neck: {neck_launches} "
+          f"launches, convs {neck_nums['sum_ms']:.4f} ms (bound {neck_nums['sum_bound_ms']:.4f}); "
+          f"the {len(new)} convs of the new epilogues {neck_nums['new_epilogues_ms']:.4f} ms, by "
+          f"the ReLU-only variant {neck_nums['new_epilogues_relu_only_ms']:.4f}; whole neck "
+          f"{neck_ms:.4f} ms by the kernel route, {run_ms:.4f} by _run; max abs error "
+          f"{err:.3g} ({smi})")
+    for r in recs:
+        print(f"  {r['name']}: M {r['M']} N {r['N']} K {r['K']} {r['epilogue']}: "
+              f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f}"
+              + (f", ReLU-only {r['relu_only_ms']:.4f}" if "relu_only_ms" in r else "")
+              + f"), err {r['max_abs_err']:.3g}")
+
+    # one traced frame, after another
+    def step(f):
+        pipe.step_frame(*f).tid
+        torch.cuda.synchronize()
+
+    prof_dir = os.path.join(repo, "work_dirs", "chip_smoke_dsvt", "trace")
+    pipe.reset()
+    profiler.reset_counters()
+    with profiler.trace(prof_dir):
+        step(frames[0])
+        step(frames[1])
+    counts = profiler.counters()
+    profiler.reset_counters()
+    sets = [cd.sets(yx, m, s) for _, yx in grid[:2] for s in (0, m["dsvt_shift"])]
+    check(counts.get("dynpillar.points") == [grid[0][0] + grid[1][0]]
+          and counts.get("dynpillar.pillars") == [pillars[0] + pillars[1]]
+          and counts.get("dynpillar.slots") == [2 * m["max_pillars"]]
+          and counts.get("dynpillar.dropped") == [0]
+          and counts.get("dsvt.pillars") == [4 * (pillars[0] + pillars[1])]
+          and counts.get("dsvt.sets") == [2 * sum(sets)]
+          and counts.get("dsvt.slots") == [2 * sum(sets) * m["dsvt_set_size"]]
+          and counts.get("neck.kernel_convs") == 2 * DSVT_CONVS,
+          f"DSVT trunk: counters {counts}, points on the grid {[g[0] for g in grid[:2]]}, "
+          f"pillars {pillars[:2]}, sets {sets}")
+    events, spans = traced_spans(prof_dir)
+    shutil.rmtree(os.path.dirname(prof_dir), ignore_errors=True)
+    part = [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") == "user_annotation" and e.get("name") == "dsvt.partition"]
+    trunk, dyn, dsvt = spans["step.trunk"], spans["step.dyn_pillars"], spans["step.dsvt"]
+    inside = lambda inner, outer: all(any(a <= p and q <= b for a, b in outer) for p, q in inner)
+    check(len(dyn) == 4 and len(dsvt) == 2 and len(part) == 2 and not spans["step.sparse_trunk"]
+          and inside(dyn, trunk) and inside(dsvt, trunk) and inside(part, dsvt),
+          f"DSVT trunk: spans {dict(spans)}, dsvt.partition {part}")
+    in_neck = kernels_in(events, spans["step.neck"][-1])
+    n_dense = sum("dense_conv" in k for k, _ in in_neck)
+    library = sorted({k for k, _ in in_neck if "dense_conv" not in k
+                      and re.search("cudnn|conv|fft|gemm|gemv", k, re.I)})
+    check(n_dense == DSVT_CONVS and not library,
+          f"DSVT trunk: {n_dense} dense_conv kernels under step.neck, library {library}")
+    dev_ms = {"step.neck": sum(ms for _, ms in in_neck),
+              "step.dsvt": sum(ms for _, ms in kernels_in(events, dsvt[-1])),
+              "dsvt.partition": sum(ms for _, ms in kernels_in(events, part[-1])),
+              "step.dyn_pillars": sum(ms for span in dyn[-2:] for _, ms in kernels_in(events, span))}
+    print(f"phase 25: a traced frame: step.dyn_pillars (twice) and step.dsvt inside step.trunk, "
+          f"dsvt.partition inside step.dsvt, no step.sparse_trunk; counters {counts}; under "
+          f"step.neck {len(in_neck)} kernels, {n_dense} dense_conv, no library conv or GEMM; "
+          f"device ms {dev_ms}")
+
+    # the step's frames/s over the frames in memory
+    runs = []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        serve()[-1].tid
+        torch.cuda.synchronize()
+        runs.append(n / (time.perf_counter() - t0))
+    fps = statistics.median(runs)
+    nums = dict(frames=n, valid_rows=rows, pillars=pillars, launches=launches,
+                ids_carried=carried, neck=neck_nums, counters=counts, dev_ms=dev_ms,
+                frames_per_s=fps, frames_per_s_runs=runs, seconds=time.perf_counter() - t_phase)
+    print(f"phase 25: {TIMED_RUNS} runs of {n} frames from memory at "
+          f"{[round(x, 3) for x in runs]} frames/s (median {fps:.3f}) ({smi}); "
+          f"{nums['seconds']:.1f} s")
+    return launches, nums
+
+
 def traced_spans(prof_dir):
     """The events of the one trace under prof_dir and its step.* spans:
     (events, {name: [(start, end) us, ...]})."""
@@ -3641,6 +3909,9 @@ def main(argv=None) -> int:
     path_launches["24: trunk graph, car.stream's cell"], trunk_graph = phase_trunk_graph(
         kernels, smi)
 
+    # 25. the DSVT-P trunk served
+    path_launches[f"25: {DSVT_LABEL}"], dsvt = phase_dsvt(kernels, smi)
+
     src = {"rulebook_conv": ("shasta_tpu_torch/csrc/block_conv.cu",
                              "shasta_tpu/ops/pallas/block_conv.py:117", "B=1 frame with plans"),
            "keyed_conv": ("shasta_tpu_torch/csrc/window_conv.cu",
@@ -3696,13 +3967,17 @@ def main(argv=None) -> int:
         "replaces": "none: XLA convs in the JAX package", "launches": sum(by_path.values()),
         "launches_by_path": by_path,
         "launches_a_pillar_frame": pillars["dense_conv_per_frame"],
+        "launches_a_dsvt_frame": dsvt["launches"]["dense_conv"] / dsvt["frames"],
         "per": "one neck call (the sum over its convs, 15 of the car neck, 20 of the pillar "
-               "neck, each the median of 10 CUDA-event-timed launches), f32; library: "
-               "F.conv2d / F.conv_transpose2d under cuDNN, TF32 off, without BN",
+               "neck, 23 of DSVT-P's residual neck on a served frame's canvas, each the median "
+               "of 10 CUDA-event-timed launches), f32; library: F.conv2d / F.conv_transpose2d "
+               "under cuDNN, TF32 off, without BN; the residual neck has no library timing, "
+               "its new epilogues are timed beside the ReLU-only variant",
         **{key: {B: {k: r[k] for k in ("launches", "sum_ms", "sum_bound_ms", "sum_plain_ms",
                                         "sum_library_ms", "neck_ms", "run_ms", "max_abs_err")}
                  for B, r in neck[label].items()}
-           for key, label in (("batches", "car"), ("pillar_batches", "pillars"))}})
+           for key, label in (("batches", "car"), ("pillar_batches", "pillars"))},
+        "dsvt_neck": {k: v for k, v in dsvt["neck"].items() if k != "convs"}})
     by_path = {p: n["voxelize_lanes"] for p, n in path_launches.items() if n["voxelize_lanes"]}
     out_kernels.append({
         "name": "voxelize_lanes", "route": "cuda", "source": "shasta_tpu_torch/csrc/voxelize.cu",
@@ -3730,7 +4005,7 @@ def main(argv=None) -> int:
                       "classes7_peak_device_gib": peak_gb, "serving": serving,
                       "eval_flow": eval_flow, "training": training, "chain": chain,
                       "waymo": waymo, "zoo": zoo, "neck": neck, "pillars": pillars, "mvp": mvp,
-                      "trunk_graph": trunk_graph,
+                      "trunk_graph": trunk_graph, "dsvt": dsvt,
                       "card": smi, "host": host,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out_kernels}))

@@ -1,6 +1,6 @@
-// dense_conv: the f32 neck's convolutions (models/rpn.py RPN and
-// SharedConv) as one implicit-GEMM launch each, eval-mode BN and ReLU in
-// the epilogue.
+// dense_conv: the f32 neck's convolutions (models/rpn.py RPN, ResNeck and
+// SharedConv) as one implicit-GEMM launch each, eval-mode BN, an optional
+// residual input and an optional ReLU in the epilogue.
 //
 // Replaces no TPU kernel: the JAX package leaves the neck's dense convs to
 // XLA. It replaces cuDNN here, which with TF32 off runs the f32 neck at B=1
@@ -8,7 +8,16 @@
 // microseconds of device and ~10 of host. Here the neck is 15 launches:
 // the 12 convs of its two blocks, its two deblocks and the shared conv.
 //
-//   out[m, n] = relu(scale[n] * sum_k A[m, k] W[n, k] + shift[n])
+//   out[m, n] = relu(scale[n] * sum_k A[m, k] W[n, k] + shift[n] + res[m, n])
+//
+// The ReLU and the residual are template flags of the kernel: the RPN's
+// launches take the ReLU without a residual (the variant every conv had
+// before ResNeck); a residual block's second conv adds its identity before
+// the ReLU; its 1x1 downsample branch and a plain conv (TransFusion-L's
+// shared conv) keep neither. The two new variants are built for 128-column
+// tiles only (every ResNeck width is a multiple of 128), so the build grows
+// by two kernels a tile height. `res` has the output's layout and is read
+// at each output's own place.
 //
 // M is the B*Ho*Wo output pixels, N the output channels, K the taps x Cin.
 // A is never formed: a block's loads address the NHWC input at each pixel's
@@ -55,6 +64,7 @@ struct Conv {
   const float* scale;  // (N,)
   const float* shift;  // (N,)
   float* out;          // (B, Ho * up, Wo * up, ldo)
+  const float* res;    // null, or as out: added before the ReLU
   int H, W, Cin, Ho, Wo, M, ks, stride, pad, N, up, ldo, co_off;
 };
 
@@ -68,7 +78,7 @@ constexpr size_t smem_bytes() {
   return (size_t)STAGES * (BM + BN) * LDS * sizeof(float);
 }
 
-template <int BM, int BN>
+template <int BM, int BN, bool RELU, bool RES>
 __global__ void __launch_bounds__(THREADS, 1) dense_conv_kernel(const Conv p) {
   constexpr int WARPS_N = BN / 32, WARPS_M = 8 / WARPS_N;
   constexpr int WM = BM / WARPS_M, MI = WM / 16, NI = 4;  // a warp's tile: WM x 32
@@ -175,8 +185,8 @@ __global__ void __launch_bounds__(THREADS, 1) dense_conv_kernel(const Conv p) {
   }
   gmma::cp_async_wait<0>();
 
-  // epilogue: BN's scale and shift, ReLU, and the store at each pixel's
-  // place (up x up outputs a pixel for the transposed conv)
+  // epilogue: BN's scale and shift, the residual, ReLU, and the store at
+  // each pixel's place (up x up outputs a pixel for the transposed conv)
   const int co_n = p.N / (p.up * p.up), Hu = p.Ho * p.up, Wu = p.Wo * p.up;
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) {
@@ -192,10 +202,19 @@ __global__ void __launch_bounds__(THREADS, 1) dense_conv_kernel(const Conv p) {
         float* dst = p.out +
                      (((size_t)b * Hu + oy * p.up + dy) * Wu + ox * p.up + dx) * p.ldo +
                      p.co_off + co;
-        const float v0 = fmaf(acc[mi][ni][2 * half], __ldg(p.scale + n), __ldg(p.shift + n));
-        const float v1 =
+        float v0 = fmaf(acc[mi][ni][2 * half], __ldg(p.scale + n), __ldg(p.shift + n));
+        float v1 =
             fmaf(acc[mi][ni][2 * half + 1], __ldg(p.scale + n + 1), __ldg(p.shift + n + 1));
-        *reinterpret_cast<float2*>(dst) = make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+        if constexpr (RES) {
+          const float2 r = __ldg(reinterpret_cast<const float2*>(p.res + (dst - p.out)));
+          v0 += r.x;
+          v1 += r.y;
+        }
+        if constexpr (RELU) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
       }
     }
   }
@@ -218,15 +237,25 @@ int tile_rows(int M, int N) {
 }
 
 // static: each library keeps its own shared-memory attribute (gather_mma.cuh's `run`)
-template <int BM, int BN>
+template <int BM, int BN, bool RELU = true, bool RES = false>
 static int run(const Conv& p, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      dense_conv_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dense_conv_kernel<BM, BN, RELU, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes<BM, BN>());
   if (attr != cudaSuccess) return (int)attr;
   const long long blocks = (long long)((p.M + BM - 1) / BM) * (p.N / BN);
-  dense_conv_kernel<BM, BN><<<(unsigned)blocks, THREADS, smem_bytes<BM, BN>(), stream>>>(p);
+  dense_conv_kernel<BM, BN, RELU, RES>
+      <<<(unsigned)blocks, THREADS, smem_bytes<BM, BN>(), stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The two epilogues ResNeck adds, on 128-column tiles: no ReLU and no
+// residual (a downsample branch, a plain conv), or the residual then ReLU.
+template <int BM>
+static int run_res(const Conv& p, bool relu, cudaStream_t stream) {
+  if (relu && p.res) return run<BM, 128, true, true>(p, stream);
+  if (!relu && !p.res) return run<BM, 128, false, false>(p, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -236,22 +265,29 @@ extern "C" int dense_conv_tile_rows(int M, int N) { return tile_rows(M, N); }
 
 // x (B, H, W, Cin) f32, w (N, ks * ks * Cin), scale and shift (N,); out
 // (B, Ho * up, Wo * up, ldo), written at channels [co_off, co_off + N /
-// up^2). ks x ks taps at `stride` with `pad` zeros, or (up > 1) ks 1 and N
-// = up^2 Cout columns ordered (dy, dx, co). The wrapper checks the shapes;
-// this refuses Cin % 32 != 0, N % 64 != 0 and odd channel counts. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// up^2); res null or shaped as out. ks x ks taps at `stride` with `pad`
+// zeros, or (up > 1) ks 1 and N = up^2 Cout columns ordered (dy, dx, co).
+// relu 1 with no res is the RPN's epilogue; relu 0 without res and relu 1
+// with res take N % 128 == 0. The wrapper checks the shapes; this refuses
+// Cin % 32 != 0, N % 64 != 0, odd channel counts and the other epilogues.
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int dense_conv_launch(const float* x, const float* w, const float* scale,
-                                 const float* shift, float* out, int B, int H, int W, int Cin,
-                                 int Ho, int Wo, int ks, int stride, int pad, int N, int up,
-                                 int ldo, int co_off, void* stream) {
+                                 const float* shift, float* out, const float* res, int relu,
+                                 int B, int H, int W, int Cin, int Ho, int Wo, int ks,
+                                 int stride, int pad, int N, int up, int ldo, int co_off,
+                                 void* stream) {
   if (Cin % BK != 0 || N % 64 != 0 || up < 1 || N % (up * up) != 0 || (N / (up * up)) % 2 ||
       ldo % 2 || co_off % 2 || ks < 1 || stride < 1)
     return (int)cudaErrorInvalidValue;
-  const Conv p{x, w, scale, shift, out, H, W, Cin, Ho, Wo, B * Ho * Wo, ks, stride, pad,
+  const Conv p{x, w, scale, shift, out, res, H, W, Cin, Ho, Wo, B * Ho * Wo, ks, stride, pad,
                N, up, ldo, co_off};
   if (p.M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = N % 128 == 0;
-  if (tile_rows(p.M, N) == 128) return wide ? run<128, 128>(p, s) : run<128, 64>(p, s);
+  const bool wide = N % 128 == 0, tall = tile_rows(p.M, N) == 128;
+  if (!relu || res) {
+    if (!wide) return (int)cudaErrorInvalidValue;
+    return tall ? run_res<128>(p, relu, s) : run_res<64>(p, relu, s);
+  }
+  if (tall) return wide ? run<128, 128>(p, s) : run<128, 64>(p, s);
   return wide ? run<64, 128>(p, s) : run<64, 64>(p, s);
 }

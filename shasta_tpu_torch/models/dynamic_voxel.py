@@ -46,18 +46,29 @@ def _keys_and_mask(points, valid, pc_range, voxel_size):
     return torch.where(keep, key, _BIG), gs
 
 
-def _segment_mean(feats, key, max_voxels: int):
-    """Compact the unique keys into [0, max_voxels) slots and mean `feats`.
-    Returns (mean (max_voxels, C), slot_key (max_voxels,), valid, head
-    (N,): the first point of each distinct key in sorted order). Slot
-    order is ascending key (a stable sort); overflow past max_voxels is
-    dropped (valid.sum() == max_voxels shows it)."""
+def segments(key, max_voxels: int):
+    """The points' slots: the unique keys (_BIG: a dropped point) compacted
+    into [0, max_voxels) in ascending order (a stable sort). Returns (sk,
+    order): the sorted keys and the sort's permutation; head (N,): the
+    first point of each distinct key in sorted order; vi (N,): each sorted
+    point's slot, max_voxels past the capacity or dropped; in_cap = vi <
+    max_voxels."""
     sk, order = torch.sort(key, stable=True)
     prev = torch.cat([sk.new_full((1,), -1), sk[:-1]])
     head = (sk != prev) & (sk != _BIG)
     vox_id = torch.cumsum(head.to(torch.int64), 0) - 1
     in_cap = (sk != _BIG) & (vox_id < max_voxels)
     vi = torch.where(in_cap, vox_id, max_voxels)  # row max_voxels is dropped
+    return sk, order, head, vi, in_cap
+
+
+def _segment_mean(feats, key, max_voxels: int):
+    """Compact the unique keys into [0, max_voxels) slots and mean `feats`.
+    Returns (mean (max_voxels, C), slot_key (max_voxels,), valid, head
+    (N,): the first point of each distinct key in sorted order). Slot
+    order is ascending key (a stable sort); overflow past max_voxels is
+    dropped (valid.sum() == max_voxels shows it)."""
+    sk, order, head, vi, in_cap = segments(key, max_voxels)
 
     C = feats.shape[1]
     acc = feats.new_zeros((max_voxels + 1, C)).index_add_(

@@ -8,7 +8,7 @@ capacity with a validity mask. The module is built in eval mode with
 every parameter frozen, as serving runs it; training (train/loop.py) turns
 on the grads and BN modes it needs.
 
-Three trunks, by `ShastaConfig.reader`:
+Four trunks, by `ShastaConfig.reader`:
 - "voxelnet" (the default, ShaSTA's configs): voxel means, the sparse 3D
   trunk (`backbone`), the RPN neck and the shared conv;
 - "dynamic" (CenterPoint-MVP, configs/nusc/mvp/car.py): det3d's
@@ -20,7 +20,13 @@ Three trunks, by `ShastaConfig.reader`:
 - "pillars" (CenterPoint-PP, configs/nusc/pp/car.py): det3d's
   PillarFeatureNet (`reader`) over the frame's pillars, scattered onto
   grid_shape's (ny, nx) canvas, then the neck (three blocks at published
-  widths) and the shared conv. Serving only: train/loop.py refuses it.
+  widths) and the shared conv. Serving only: train/loop.py refuses it;
+- "dsvt" (DSVT-P, configs/nusc/dsvt/car.py): OpenPCDet's DynamicPillarVFE
+  over each lane's raw point rows (`cloud`, 5 channels, and
+  `cloud_valid`) into `max_pillars` slots, DSVT's rotated-set window
+  attention (`dsvt`, models/dsvt.py), the pillars scattered onto the
+  canvas, OpenPCDet's residual neck (`ResNeck`) and TransFusion-L's plain
+  shared conv. Serving only: train/loop.py refuses it.
 """
 from __future__ import annotations
 
@@ -36,9 +42,10 @@ from ..utils import profiler
 from ..utils.profiler import annotate
 from .affinity import AffinityNet
 from .backbone import SparseBackbone
+from .dsvt import DSVT
 from .dynamic_voxel import dynamic_voxelize_virtual
 from .pillars import PillarFeatureNet, point_pillars_scatter
-from .rpn import RPN, SharedConv
+from .rpn import RPN, ResNeck, SharedConv
 from .vfe import voxel_mean_vfe
 
 
@@ -84,13 +91,48 @@ class ShastaConfig:
     # voxel_size, grid_shape), and the voxel slots a lane
     z_range: tuple = (-5.0, 3.0)
     max_voxels: int = 160000
+    # the DSVT reader (DSVT-P: a dynamic pillar net, pfn_filters wide, over
+    # each lane's 5-channel rows into max_pillars slots; one DSVT stage of
+    # dsvt_blocks blocks at dsvt_d_model, dsvt_heads heads and an FFN of
+    # dsvt_ffn, sets of dsvt_set_size in windows of dsvt_window cells
+    # shifted by 0 and dsvt_shift); its neck is ResNeck (the RPN's keys),
+    # its shared conv TransFusion-L's plain 3x3 conv
+    max_pillars: int = 26000
+    dsvt_d_model: int = 128
+    dsvt_heads: int = 8
+    dsvt_ffn: int = 256
+    dsvt_blocks: int = 4
+    dsvt_set_size: int = 90
+    dsvt_window: int = 30
+    dsvt_shift: int = 15
 
     def __post_init__(self):
-        if self.reader not in ("voxelnet", "pillars", "dynamic"):
-            raise ValueError(f"reader {self.reader!r}: 'voxelnet', 'pillars' or 'dynamic'")
+        if self.reader not in ("voxelnet", "pillars", "dynamic", "dsvt"):
+            raise ValueError(f"reader {self.reader!r}: 'voxelnet', 'pillars', 'dynamic' "
+                             "or 'dsvt'")
         if self.reader == "dynamic" and self.num_input_features != 21:
             raise ValueError("the dynamic reader gives 21 features a voxel, "
                              f"not num_input_features {self.num_input_features}")
+        if self.reader == "dsvt":
+            self._check_dsvt()
+
+    def _check_dsvt(self):
+        """Refuses widths and a grid the DSVT reader cannot give."""
+        d = self.dsvt_d_model
+        for ok, why in (
+                (self.num_input_features == 5, f"takes 5 point channels, not "
+                                               f"num_input_features {self.num_input_features}"),
+                (self.grid_shape[0] == 1, f"is a pillar grid: grid_shape {self.grid_shape}"),
+                (self.pfn_filters[-1] == d and all(f % 2 == 0 for f in self.pfn_filters),
+                 f"gives pfn_filters[-1] = dsvt_d_model ({d}), even widths: {self.pfn_filters}"),
+                (d % self.dsvt_heads == 0, f"splits dsvt_d_model {d} into {self.dsvt_heads} heads"),
+                (self.neck_input_features == d, f"feeds the neck dsvt_d_model {d} channels, "
+                                                f"not {self.neck_input_features}"),
+                (self.out_stride * self.us_layer_strides[0] == self.ds_layer_strides[0],
+                 f"maps the canvas to the neck's first level, not to out_stride "
+                 f"{self.out_stride}")):
+            if not ok:
+                raise ValueError(f"the dsvt reader {why}")
 
 
 class ShastaModel(AffinityNet):
@@ -111,25 +153,32 @@ class ShastaModel(AffinityNet):
             self.reader = PillarFeatureNet(cfg.pfn_filters, cfg.num_input_features,
                                            cfg.voxel_size, cfg.pc_start, device=self.device,
                                            det3d=True, dtype=cfg.dtype)
+        elif cfg.reader == "dsvt":
+            self.dsvt = DSVT(cfg.pfn_filters, cfg.num_input_features, cfg.dsvt_d_model,
+                             cfg.dsvt_heads, cfg.dsvt_ffn, cfg.dsvt_blocks, cfg.dsvt_set_size,
+                             cfg.dsvt_window, cfg.dsvt_shift, cfg.grid_shape[1:], cfg.pc_start,
+                             cfg.voxel_size, cfg.z_range, cfg.max_pillars, dtype=cfg.dtype)
         else:
             self.backbone = SparseBackbone(
                 cfg.num_input_features, dtype=cfg.dtype,
                 caps=(cfg.cap_conv2, cfg.cap_conv3, cfg.cap_conv4, cfg.cap_extra),
                 bn_sync=cfg.bn_axis_name is not None)
-        self.neck = RPN(cfg.layer_nums, cfg.ds_layer_strides, cfg.ds_num_filters,
-                        cfg.us_layer_strides, cfg.us_num_filters, cfg.neck_input_features,
-                        dtype=cfg.dtype)
+        neck = ResNeck if cfg.reader == "dsvt" else RPN
+        self.neck = neck(cfg.layer_nums, cfg.ds_layer_strides, cfg.ds_num_filters,
+                         cfg.us_layer_strides, cfg.us_num_filters, cfg.neck_input_features,
+                         dtype=cfg.dtype)
         self.shared_conv = SharedConv(sum(cfg.us_num_filters), cfg.share_conv_channel,
-                                      dtype=cfg.dtype)
+                                      dtype=cfg.dtype, plain=cfg.reader == "dsvt")
         self.to(self.device).eval()
         self.requires_grad_(False)
 
     @property
     def trunk_names(self) -> tuple[str, str, str]:
         """The attribute names of the trunk's three modules: the pillar
-        reader or the sparse backbone (which the dynamic reader feeds),
-        the neck, the shared conv."""
-        return ("reader" if self.cfg.reader == "pillars" else "backbone", "neck", "shared_conv")
+        reader, the DSVT reader and stage, or the sparse backbone (which
+        the dynamic reader feeds); the neck; the shared conv."""
+        first = {"pillars": "reader", "dsvt": "dsvt"}.get(self.cfg.reader, "backbone")
+        return (first, "neck", "shared_conv")
 
     def pair_tensor(self, batch: dict) -> sp.SparseTensor:
         """The curr and the prev frame of B frame pairs as ONE sparse batch
@@ -149,7 +198,7 @@ class ShastaModel(AffinityNet):
         """Shared-conv BEV maps (B, H, W, 64) of the curr and the prev frame
         of B frame pairs, through the trunk once (`pair_tensor`), every
         index built on the device."""
-        keys = CLOUD_KEYS if self.cfg.reader == "dynamic" else VOXEL_KEYS
+        keys = CLOUD_KEYS if self.cfg.reader in ("dynamic", "dsvt") else VOXEL_KEYS
         B = batch[keys[0]].shape[0]
         if self.cfg.reader != "voxelnet":  # the curr and prev frames as one batch of 2B
             frames = {k: torch.cat([batch[k], batch["prev_" + k]]) for k in keys}
@@ -202,8 +251,8 @@ class ShastaModel(AffinityNet):
 
 
 VOXEL_KEYS = ("voxels", "num_points", "coordinates", "voxels_valid")
-# a frame of raw point rows, the dynamic reader's input: (B, N, C) rows
-# padded to a fixed N, and their (B, N) mask
+# a frame of raw point rows, the dynamic and DSVT readers' input: (B, N, C)
+# rows padded to a fixed N, and their (B, N) mask
 CLOUD_KEYS = ("cloud", "cloud_valid")
 
 
@@ -238,39 +287,43 @@ def trunk_bev(cfg: ShastaConfig, first: torch.nn.Module, neck: RPN,
     x], voxels_valid (B, V), all tensors on the trunk's device; for the
     sparse backbone optionally, at B=1, the plan_* arrays of
     shasta_tpu_torch/plans.py (without them every index is built on the
-    device). Row b*V + v carries batch index b. The dynamic reader reads
-    cloud (B, N, C) and cloud_valid (B, N) instead (`dynamic_sparse`)."""
+    device). Row b*V + v carries batch index b. The dynamic and DSVT
+    readers read cloud (B, N, C) and cloud_valid (B, N) instead
+    (`dynamic_sparse`, `dsvt_canvas`)."""
     if cfg.reader == "pillars":
-        with annotate("step.pillars"):
-            canvas = pillar_canvas(cfg, first, frame)
-        with annotate("step.neck"):
-            bev = shared_conv(neck(canvas.permute(0, 3, 1, 2)))
-        return bev.permute(0, 2, 3, 1)
-    return _trunk_from_sparse(first, neck, shared_conv, *frame_sparse(cfg, frame))
+        canvas = pillar_canvas(cfg, first, frame)
+    elif cfg.reader == "dsvt":
+        canvas = dsvt_canvas(cfg, first, frame)
+    else:
+        return _trunk_from_sparse(first, neck, shared_conv, *frame_sparse(cfg, frame))
+    with annotate("step.neck"):
+        bev = shared_conv(neck(canvas.permute(0, 3, 1, 2)))
+    return bev.permute(0, 2, 3, 1)
 
 
 def pillar_canvas(cfg: ShastaConfig, reader: PillarFeatureNet, frame: dict) -> torch.Tensor:
     """The pillar reader over every one of the frame's V pillar slots (B,
     V, P, 5), scattered onto the canvas of cfg.grid_shape's (ny, nx): (B,
-    ny, nx, C), channels last; the invalid rows are dropped. While a
-    profiler records it counts, per lane, `pillars.kept` (the valid
-    pillars), `pillars.slots` (V) and `pillars.points` (the points in
-    valid pillars)."""
-    B, V, P = frame["voxels"].shape[:3]
-    voxels = frame["voxels"].reshape(B * V, P, -1)[..., :cfg.num_input_features]
-    num = frame["num_points"].reshape(B * V)
-    zyx = frame["coordinates"].reshape(B * V, 3).to(torch.int32)
-    valid = frame["voxels_valid"].reshape(B * V).bool()
-    feats = reader(voxels, num, zyx)
-    bidx = torch.arange(B, dtype=torch.int32, device=feats.device).repeat_interleave(V)
-    canvas = point_pillars_scatter(feats, torch.cat([bidx[:, None], zyx], 1), valid, B,
-                                   *cfg.grid_shape[1:])
-    if profiler.recording():
-        lanes = valid.reshape(B, V)
-        profiler.count("pillars.kept", lanes.sum(1))
-        profiler.count("pillars.slots", [V] * B)
-        profiler.count("pillars.points", (num.reshape(B, V) * lanes).sum(1))
-    return canvas
+    ny, nx, C), channels last, in span step.pillars; the invalid rows are
+    dropped. While a profiler records it counts, per lane, `pillars.kept`
+    (the valid pillars), `pillars.slots` (V) and `pillars.points` (the
+    points in valid pillars)."""
+    with annotate("step.pillars"):
+        B, V, P = frame["voxels"].shape[:3]
+        voxels = frame["voxels"].reshape(B * V, P, -1)[..., :cfg.num_input_features]
+        num = frame["num_points"].reshape(B * V)
+        zyx = frame["coordinates"].reshape(B * V, 3).to(torch.int32)
+        valid = frame["voxels_valid"].reshape(B * V).bool()
+        feats = reader(voxels, num, zyx)
+        bidx = torch.arange(B, dtype=torch.int32, device=feats.device).repeat_interleave(V)
+        canvas = point_pillars_scatter(feats, torch.cat([bidx[:, None], zyx], 1), valid, B,
+                                       *cfg.grid_shape[1:])
+        if profiler.recording():
+            lanes = valid.reshape(B, V)
+            profiler.count("pillars.kept", lanes.sum(1))
+            profiler.count("pillars.slots", [V] * B)
+            profiler.count("pillars.points", (num.reshape(B, V) * lanes).sum(1))
+        return canvas
 
 
 def frame_sparse(cfg: ShastaConfig, frame: dict) -> tuple[sp.SparseTensor, dict | None]:
@@ -322,3 +375,41 @@ def dynamic_sparse(cfg: ShastaConfig, cloud: torch.Tensor, cloud_valid: torch.Te
         profiler.count("dynvox.slots", [V] * B)
         profiler.count("dynvox.dropped", torch.stack([lane[3] for lane in lanes]) - kept)
     return st
+
+
+def dsvt_canvas(cfg: ShastaConfig, dsvt: DSVT, frame: dict) -> torch.Tensor:
+    """DSVT-P's canvas (B, ny, nx, C), channels last, of B lanes' rows
+    cloud (B, N, 5) and mask cloud_valid (B, N): each lane's pillars read
+    into cfg.max_pillars slots and, after the DSVT stage, scattered onto
+    the canvas (span step.dyn_pillars, twice a call); the partitions and
+    the blocks over every lane's pillars at once (span step.dsvt, the
+    partitions in dsvt.partition). While a profiler records it counts, per
+    lane, `dynpillar.points` (valid rows on the grid), `.pillars` (the
+    valid pillars), `.slots` (max_pillars) and `.dropped` (pillars past
+    the capacity), and per partition (four a call) `dsvt.pillars`,
+    `dsvt.sets` and `dsvt.slots` (the sets' slots, repeats included)."""
+    cloud, valid = frame["cloud"], frame["cloud_valid"].bool()
+    B, V = cloud.shape[0], cfg.max_pillars
+    with annotate("step.dyn_pillars"):
+        lanes = [dsvt.pillars(cloud[b], valid[b]) for b in range(B)]
+        feats, yx, pvalid = (torch.cat([lane[i] for lane in lanes]) for i in range(3))
+    with annotate("step.dsvt"):
+        with annotate("dsvt.partition"):
+            parts = dsvt.partitions(yx, pvalid, B)
+        feats = dsvt.encode(feats, parts)
+    with annotate("step.dyn_pillars"):
+        bidx = torch.arange(B, device=feats.device).repeat_interleave(V)
+        coords = torch.stack([bidx, torch.zeros_like(bidx), yx[:, 0], yx[:, 1]], 1)
+        canvas = point_pillars_scatter(feats, coords, pvalid, B, *cfg.grid_shape[1:])
+    if profiler.recording():
+        kept = pvalid.reshape(B, V).sum(1)
+        profiler.count("dynpillar.points", torch.stack([lane[3] for lane in lanes]))
+        profiler.count("dynpillar.pillars", kept)
+        profiler.count("dynpillar.slots", [V] * B)
+        profiler.count("dynpillar.dropped", torch.stack([lane[4] for lane in lanes]) - kept)
+        for part in parts:
+            for _ in range(2):
+                profiler.count("dsvt.pillars", kept)
+                profiler.count("dsvt.sets", part.sets)
+                profiler.count("dsvt.slots", part.sets * cfg.dsvt_set_size)
+    return canvas

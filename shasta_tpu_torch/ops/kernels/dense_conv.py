@@ -1,30 +1,33 @@
 """dense_conv: the f32 neck's convolutions, each one launch with eval-mode
-BN and ReLU fused (csrc/dense_conv.cu).
+BN, an optional residual and an optional ReLU fused (csrc/dense_conv.cu).
 
-    dense_conv(x (B, H, W, Cin), packed, out=None, co_off=0)
+    dense_conv(x (B, H, W, Cin), packed, out=None, co_off=0, relu=True, residual=None)
         -> out (B, Ho * up, Wo * up, ldo) f32, channels last,
-    out[..., co_off:co_off + Co] = relu(conv(x, W) * scale + shift)
+    out[..., co_off:co_off + Co] = relu(conv(x, W) * scale + shift + residual)
 
 `pack(conv, bn, pad)` folds a Conv2d (or a ConvTranspose2d whose kernel
-equals its stride) and the eval-mode BatchNorm2d after it into a `Packed`:
-W as (N, ks * ks * Cin), K-major; the BN as a per-channel scale and shift,
-the conv's bias in the shift. A transposed conv of stride s is one GEMM of
-K = Cin and N = s * s * Cout, columns (dy, dx, co), whose store puts each
-pixel's s x s outputs at their places (`up` = s). `out` may be a wider
-buffer: the result goes into its channels [co_off, co_off + Co), so that
-two convs fill one map.
+equals its stride) and the eval-mode BatchNorm2d after it (or none: scale
+1) into a `Packed`: W as (N, ks * ks * Cin), K-major; the BN as a
+per-channel scale and shift, the conv's bias in the shift. `residual` has
+`out`'s shape and is added before the ReLU (a residual block's second
+conv); `relu=False` leaves the ReLU out (its downsample branch, a plain
+conv). On the card those two epilogues take N a multiple of 128. A
+transposed conv of stride s is one GEMM of K = Cin and N = s * s * Cout,
+columns (dy, dx, co), whose store puts each pixel's s x s outputs at their
+places (`up` = s). `out` may be a wider buffer: the result goes into its
+channels [co_off, co_off + Co), so that two convs fill one map.
 
 It replaces no TPU kernel: the JAX package leaves the neck to XLA. On the
 card, cuDNN with TF32 off ran the f32 neck at B=1 by FFT tiling, ~33,000
 launches a frame; this is one launch a conv, 15 a neck (the RPN's 12
-convs and 2 deblocks, the shared conv). What bounds it: the products
+convs and 2 deblocks, the shared conv; 23 for DSVT-P's residual neck). What bounds it: the products
 (2 * M * K * N FLOPs, 145 GFLOP a 180 x 180 frame) at 495/3 TFLOP/s as
 three TF32 passes, far above its bytes; the source note says what its
 design does about it.
 
 On a CPU tensor the wrapper computes the plain version (F.conv2d with TF32
-off, or the transposed conv as the same GEMM, then scale, shift and ReLU);
-on a CUDA tensor it launches the kernel or raises. Each launch counts one
+off, or the transposed conv as the same GEMM, then scale, shift, the
+residual and ReLU); on a CUDA tensor it launches the kernel or raises. Each launch counts one
 `neck.kernel_convs` on the program's counters (`utils/profiler.count`).
 """
 from __future__ import annotations
@@ -55,15 +58,19 @@ class Packed(NamedTuple):
     up: int              # a transposed conv's stride: up x up outputs a pixel
 
 
-def pack(conv: nn.Module, bn: nn.BatchNorm2d, pad: int = 0) -> Packed:
+def pack(conv: nn.Module, bn: nn.BatchNorm2d | None, pad: int = 0) -> Packed:
     """Fold `conv` (after `pad` zeros of a ZeroPad2d) and the eval-mode
     `bn` after it: scale = gamma / sqrt(var + eps), shift = beta + (bias -
-    mean) * scale."""
+    mean) * scale; without a BN scale 1 and shift the conv's bias (or 0)."""
     with torch.no_grad():
-        scale = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
-        bias = 0.0 if conv.bias is None else conv.bias.float()
-        shift = bn.bias.float() + (bias - bn.running_mean.float()) * scale
         w = conv.weight.float()
+        co = w.shape[1] if isinstance(conv, nn.ConvTranspose2d) else w.shape[0]
+        bias = (torch.zeros(co, device=w.device) if conv.bias is None else conv.bias.float())
+        if bn is None:
+            scale, shift = torch.ones_like(bias), bias.clone()
+        else:
+            scale = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
+            shift = bn.bias.float() + (bias - bn.running_mean.float()) * scale
         if isinstance(conv, nn.ConvTranspose2d):
             s = conv.stride[0]
             if (conv.kernel_size != (s, s) or conv.stride != (s, s) or conv.padding != (0, 0)
@@ -91,10 +98,11 @@ def out_grid(x: torch.Tensor, p: Packed) -> tuple[int, int]:
 
 
 def dense_conv_plain(x: torch.Tensor, p: Packed, out: torch.Tensor | None = None,
-                     co_off: int = 0) -> torch.Tensor:
+                     co_off: int = 0, relu: bool = True,
+                     residual: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch: F.conv2d (TF32 off on the card),
     or a transposed conv as the GEMM x @ W^T with an up x up store; then
-    scale, shift and ReLU, into `out`'s channels from co_off."""
+    scale, shift, the residual and ReLU, into `out`'s channels from co_off."""
     B, H, W, cin = x.shape
     if p.up == 1:
         w = p.w.reshape(-1, p.ks, p.ks, cin).permute(0, 3, 1, 2)
@@ -104,14 +112,19 @@ def dense_conv_plain(x: torch.Tensor, p: Packed, out: torch.Tensor | None = None
         y = (x.reshape(-1, cin) @ p.w.t()).reshape(B, H, W, u, u, -1)
         y = y.permute(0, 1, 3, 2, 4, 5).reshape(B, H * u, W * u, -1)
     co = y.shape[-1]
-    y = torch.relu(y * p.scale[:co] + p.shift[:co])
+    y = y * p.scale[:co] + p.shift[:co]
+    if residual is not None:
+        y = y + (residual if out is None else residual[..., co_off:co_off + co])
+    if relu:
+        y = torch.relu(y)
     if out is None:
         return y.contiguous()
     out[..., co_off:co_off + co] = y
     return out
 
 
-def _check(x: torch.Tensor, p: Packed, out: torch.Tensor | None, co_off: int) -> None:
+def _check(x: torch.Tensor, p: Packed, out: torch.Tensor | None, co_off: int, relu: bool,
+           residual: torch.Tensor | None) -> None:
     if x.dim() != 4:
         raise ValueError("x must be (B, H, W, Cin), channels last")
     cin, N = x.shape[3], p.w.shape[0]
@@ -120,7 +133,7 @@ def _check(x: torch.Tensor, p: Packed, out: torch.Tensor | None, co_off: int) ->
                          f"ks={p.ks}")
     if N % (p.up * p.up):
         raise ValueError(f"N={N} is not a multiple of up^2={p.up * p.up}")
-    tensors = (x, p.w, p.scale, p.shift) + (() if out is None else (out,))
+    tensors = (x, p.w, p.scale, p.shift) + tuple(t for t in (out, residual) if t is not None)
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"dense_conv takes f32, got {t.dtype}")
@@ -128,19 +141,28 @@ def _check(x: torch.Tensor, p: Packed, out: torch.Tensor | None, co_off: int) ->
             raise ValueError("all inputs must lie on one device")
         if not t.is_contiguous():
             raise ValueError("dense_conv's inputs and output must be contiguous")
+    Ho, Wo = out_grid(x, p)
+    want = (x.shape[0], Ho * p.up, Wo * p.up)
+    co = N // (p.up * p.up)
     if out is not None:
-        Ho, Wo = out_grid(x, p)
-        want = (x.shape[0], Ho * p.up, Wo * p.up)
-        co = N // (p.up * p.up)
         if out.dim() != 4 or tuple(out.shape[:3]) != want or not 0 <= co_off <= out.shape[3] - co:
             raise ValueError(f"out {tuple(out.shape)} cannot take {want} x {co} channels "
                              f"at {co_off}")
+    if residual is not None:
+        shape = want + (co,) if out is None else tuple(out.shape)
+        if tuple(residual.shape) != shape:
+            raise ValueError(f"residual {tuple(residual.shape)} is not the output's {shape}")
+        if not relu:
+            raise ValueError("a residual is added before the ReLU: relu=False takes none")
     if x.is_cuda:
-        ldo = N // (p.up * p.up) if out is None else out.shape[3]
-        if cin % BK or N % 64 or (N // (p.up * p.up)) % 2 or co_off % 2 or ldo % 2:
+        ldo = co if out is None else out.shape[3]
+        if cin % BK or N % 64 or co % 2 or co_off % 2 or ldo % 2:
             raise ValueError(f"the kernel takes Cin % {BK} == 0, N % 64 == 0 and even "
                              f"channel counts and offsets: Cin={cin}, N={N}, co_off={co_off}, "
                              f"ldo={ldo}")
+        if (residual is not None or not relu) and N % 128:
+            raise ValueError(f"the kernel's residual and ReLU-free epilogues take N % 128 == 0, "
+                             f"not N={N}")
     elif x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
 
@@ -150,7 +172,8 @@ def _lib():
     from .build import library
 
     lib = library("dense_conv")
-    lib.dense_conv_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    lib.dense_conv_launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
+                                      + [ctypes.c_void_p])
     lib.dense_conv_launch.restype = ctypes.c_int
     lib.dense_conv_tile_rows.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.dense_conv_tile_rows.restype = ctypes.c_int
@@ -164,11 +187,12 @@ def tile_rows(M: int, N: int) -> int:
 
 
 def dense_conv(x: torch.Tensor, p: Packed, out: torch.Tensor | None = None,
-               co_off: int = 0) -> torch.Tensor:
-    refuse_autograd("dense_conv", x, p.w, p.scale, p.shift)
-    _check(x, p, out, co_off)
+               co_off: int = 0, relu: bool = True,
+               residual: torch.Tensor | None = None) -> torch.Tensor:
+    refuse_autograd("dense_conv", x, p.w, p.scale, p.shift, residual)
+    _check(x, p, out, co_off, relu, residual)
     if not x.is_cuda:
-        return dense_conv_plain(x, p, out, co_off)
+        return dense_conv_plain(x, p, out, co_off, relu, residual)
     B, H, W, cin = x.shape
     Ho, Wo = out_grid(x, p)
     N = p.w.shape[0]
@@ -176,9 +200,10 @@ def dense_conv(x: torch.Tensor, p: Packed, out: torch.Tensor | None = None,
         out = torch.empty((B, Ho * p.up, Wo * p.up, N // (p.up * p.up)), dtype=torch.float32,
                           device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    res = None if residual is None else _ptr(residual)
     err = _lib().dense_conv_launch(_ptr(x), _ptr(p.w), _ptr(p.scale), _ptr(p.shift), _ptr(out),
-                                   B, H, W, cin, Ho, Wo, p.ks, p.stride, p.pad, N, p.up,
-                                   out.shape[3], co_off, ctypes.c_void_p(stream))
+                                   res, int(relu), B, H, W, cin, Ho, Wo, p.ks, p.stride, p.pad,
+                                   N, p.up, out.shape[3], co_off, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"dense_conv launch failed: CUDA error {err}")
     dense_conv.launches += 1

@@ -851,3 +851,103 @@ def test_a_fifth_trunk_key_runs_eagerly_on_the_card():
     assert len(bb._graphs._graphs) == trunk_graph.MAX_KEYS
     with torch.no_grad():
         assert torch.equal(bb(cut[-1]), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["residual 3x3 at 360", "relu-free 1x1 at 360",
+                                  "relu-free 1x1 stride 2 at 360", "residual 3x3 256 at 90",
+                                  "plain shared conv 384 at 180", "relu 3x3 at 360"])
+def test_dense_conv_epilogues_at_the_res_neck_shapes_on_the_card(case):
+    """dense_conv's residual and ReLU-free variants (and the RPN's ReLU
+    variant beside them) at DSVT-P's neck shapes against the plain version
+    (TF32 off): 1e-4 x max(1, |out|); a residual into the channel range of
+    a wider buffer too; a second launch gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from torch import nn
+
+    from shasta_tpu_torch.ops.kernels import dense_conv as dc
+
+    dev = resolve_device("cuda")
+    g = torch.Generator().manual_seed(len(case))
+    size = int(case.split(" at ")[1].split()[0])
+    cin = 384 if "384" in case else 256 if "256" in case else 128
+    co = 256 if "256" in case else 128
+    k, stride = (1, 2) if "stride 2" in case else (1, 1) if "1x1" in case else (3, 1)
+    conv = nn.Conv2d(cin, co, k, stride=stride, padding=k // 2, bias=False)
+    bn = nn.BatchNorm2d(co, eps=1e-3).eval()
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) / (cin * k * k) ** 0.5)
+        bn.running_var.copy_(0.5 + torch.rand(co, generator=g))
+        bn.running_mean.copy_(0.1 * torch.randn(co, generator=g))
+    p = dc.pack(conv.to(dev), None if "plain" in case else bn.to(dev))
+    x = torch.randn(1, size, size, cin, generator=g).to(dev)
+    Ho = (size - 1) // stride + 1
+    res = (torch.randn(1, Ho, Ho, co, generator=g).to(dev) if "residual" in case else None)
+    relu = "relu-free" not in case and "plain" not in case
+    with torch.no_grad():
+        got = dc.dense_conv(x, p, relu=relu, residual=res)
+        want = dc.dense_conv_plain(x, p, relu=relu, residual=res)
+        again = dc.dense_conv(x, p, relu=relu, residual=res)
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+    assert torch.equal(got, again)
+    assert bool((got < 0).any()) != relu
+    if res is not None:
+        buf = torch.full((1, Ho, Ho, co + 64), 7.0, device=dev)
+        wide = torch.zeros_like(buf)
+        wide[..., 64:] = res
+        with torch.no_grad():
+            dc.dense_conv(x, p, buf, 64, residual=wide)
+        assert torch.equal(buf[..., 64:], got) and bool((buf[..., :64] == 7.0).all())
+
+
+@pytest.mark.gpu
+def test_dsvt_trunk_at_the_cell_size_against_the_reference_on_the_card():
+    """A frame of the cardsvt.stream mix (~220k rows padded to 240,000)
+    through the published DSVT-P model on the card (the neck on dense_conv,
+    23 launches) against trackbench/reference/dsvt.py on the card (f32,
+    TF32 off): the pillars' count and cells exact, the BEV map and the
+    descriptors at the frame's boxes 1e-4 x max(1, |map|); a second step
+    within 1e-5 (the reader's pillar means sum by float atomics, in any
+    order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from shasta_tpu_torch.models import ShastaConfig, ShastaModel
+    from shasta_tpu_torch.ops.kernels.dense_conv import dense_conv
+    from trackbench.drivers.dsvt_stream import model_config, weights
+    from trackbench.gen.dsvt import dsvt_scenes
+    from trackbench.reference import dsvt as rd
+    from trackbench.reference import pipelines as ref
+    from trackbench.tests.small import load
+
+    dev = resolve_device("cuda")
+    ref.plain_f32()
+    cfg, mix = load("configs", "shasta-car-dsvt"), load("traffic", "dsvt_stream")
+    frame = dsvt_scenes(9, dict(mix, scenes=1, frames=2), cfg["point_pipeline"],
+                        {"car": 90})[0][1]
+    trunk, heads = weights(cfg, 9, dev)
+    model = ShastaModel(model_config(ShastaConfig, cfg, 90), device=dev)
+    model.load_state_dict({**trunk, **heads["car"]})
+    f = {k: torch.as_tensor(np.asarray(frame[k]))[None].to(dev) for k in ("cloud", "cloud_valid")}
+    assert f["cloud"].shape == (1, 240000, 5)
+    n0 = dense_conv.launches
+    with torch.no_grad():
+        got = model.bev_single(f)
+        again = model.bev_single(f)
+        _, yx, valid, _, _ = model.dsvt.pillars(f["cloud"][0], f["cloud_valid"][0].bool())
+    assert dense_conv.launches - n0 == 46
+    assert got.shape == (1, 180, 180, 128)
+    tr = rd.Trunk(trunk, cfg["model"], dev)
+    want = tr.bev(frame)
+    M = tr.counts[0]
+    assert 15000 < M <= cfg["model"]["max_pillars"] and int(valid.sum()) == M
+    assert torch.equal(yx[:M], tr.pillars(frame)[1])
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - again).abs().max()) <= 1e-5 * scale
+    assert float((got[0] - want).abs().max()) <= 1e-4 * scale
+    boxes = torch.as_tensor(ref.class_boxes(frame, "car", 90)[0], device=dev)
+    d = tr.features(got[0], boxes) - tr.features(want, boxes)
+    assert float(d.abs().max()) <= 1e-4 * scale
